@@ -1,0 +1,16 @@
+"""PyTorch model zoo of the port (dense GQA transformer in this slice)."""
+from .convert import decode_state_from_numpy, params_from_numpy
+from .transformer import (
+    decode_step,
+    forward,
+    init_decode_state,
+    init_params,
+    layer_descriptors,
+    layer_groups,
+)
+
+__all__ = [
+    "decode_state_from_numpy", "decode_step", "forward",
+    "init_decode_state", "init_params", "layer_descriptors", "layer_groups",
+    "params_from_numpy",
+]

@@ -1,0 +1,50 @@
+"""Carry weights and decode states across from the JAX package as numpy.
+
+The caller turns the reference's tree into numpy (`jax.tree.map(np.asarray,
+params)`); these functions return the same tree with torch tensors, so both
+packages run on the same numbers.  bfloat16 arrives as numpy's `bfloat16`
+extension dtype (ml_dtypes) and is reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from .transformer import torch_dtype
+
+
+def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
+    # a writable copy: the port updates caches in place, and arrays handed
+    # over from JAX are read-only views of its buffers
+    a = np.array(a, order="C", copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _tree(tree, device, dtype: Optional[torch.dtype]):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, device, dtype) for v in tree]
+    return _tensor(np.asarray(tree), device, dtype)
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
+    """The reference's param tree (numpy leaves) as the port's params, in the
+    config's dtype."""
+    table = tree["embed"]["table"]
+    if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embedding {tuple(table.shape)} does not match "
+                         f"{cfg.name}: ({cfg.vocab_size}, {cfg.d_model})")
+    return _tree(tree, device, torch_dtype(cfg))
+
+
+def decode_state_from_numpy(tree, device="cuda"):
+    """The reference's decode state (numpy leaves) as the port's."""
+    return _tree(tree, device, None)

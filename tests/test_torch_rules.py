@@ -1,0 +1,155 @@
+"""The port's rules, checked: it imports nothing of JAX or of `repro`, its
+entry points default to the card, a kernel wrapper given a non-CPU tensor
+builds and launches its kernel or raises (never the plain path), no library
+kernel stands in for a hand-written one, and the copied config table equals
+the reference's."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_no_jax_or_reference_in_sys_modules():
+    """Import the port, run one CPU forward and one CPU serve tick in a fresh
+    interpreter, and look at what got imported."""
+    code = """
+import sys, torch
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import init_params, forward
+from repro_torch.launch.serve import Request, ServeEngine
+from repro_torch.runtime import make_prefill_step
+import repro_torch.kernels.ops
+cfg = smoke_config(get_config("qwen2-0.5b"))
+params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+logits = make_prefill_step(cfg, device="cpu")(params, {"tokens": [[1, 2, 3]]})
+assert logits.shape == (1, 3, cfg.vocab_size)
+engine = ServeEngine(cfg, params, 2, 16, device="cpu")
+engine.submit(Request(0, [5, 6], 2))
+engine.tick()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_no_forbidden_import_in_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        bad = [m for m in _imports(path) if _forbidden(m)]
+        assert not bad, (path, bad)
+
+
+def test_no_library_kernel_in_the_port():
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        for word in ("scaled_dot_product_attention", "rms_norm(",
+                     "torch.compile", "cpp_extension", "flash_attn",
+                     "xformers", "cudnn"):
+            assert word not in text, (path, word)
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import init_decode_state, init_params
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if torch.cuda.is_available():
+        assert ServeEngine(cfg, params).device.type == "cuda"
+        return
+    # no card here: asking for the default device must fail, not run on CPU
+    with pytest.raises((RuntimeError, AssertionError)):
+        ServeEngine(cfg, params)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_decode_state(cfg, 1, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_params(cfg)
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    """An empty build directory and no CUDA toolkit to be found."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    _build.library.cache_clear()
+    yield _build
+    _build.library.cache_clear()
+
+
+def test_build_without_nvcc_raises(no_nvcc):
+    with pytest.raises(no_nvcc.BuildError, match="nvcc not found"):
+        no_nvcc.build()
+    assert not (no_nvcc.BUILD_DIR).exists()
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined"])
+def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
+    from repro_torch.kernels import ops
+    fn = ops.KERNELS[kernel]
+    before = fn.launches
+    if kernel == "flash_attention":
+        args = [torch.empty((1, 64, 4, 16), device="meta")] * 3
+    else:
+        args = [torch.empty((8, 896), device="meta"),
+                torch.empty((896,), device="meta")]
+    with pytest.raises(no_nvcc.BuildError):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_library_name_follows_sources(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text("// one")
+    monkeypatch.setattr(_build, "CSRC", src)
+    first = _build.library_path()
+    (src / "a.cu").write_text("// two")
+    assert _build.library_path() != first
+
+
+def test_config_tables_equal_reference():
+    """The port's copy of the architecture table cannot drift."""
+    import repro.configs as j
+    import repro_torch.configs as t
+    assert [c.name for c in t.ALL_ARCHS] == [c.name for c in j.ALL_ARCHS]
+    for jc, tc in zip(j.ALL_ARCHS, t.ALL_ARCHS):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), jc.name
+        assert dataclasses.asdict(t.smoke_config(tc)) == \
+            dataclasses.asdict(j.smoke_config(jc))
+        assert tc.param_count() == jc.param_count()
+        assert tc.block_kinds == jc.block_kinds
+    for name in j.SHAPES:
+        assert dataclasses.asdict(t.get_shape(name)) == \
+            dataclasses.asdict(j.get_shape(name))
