@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,6 +37,10 @@ SIGNATURES = {
     "repro_rmsnorm_pipelined_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32,
                                     _I64, _P],
 }
+# the `dtype` argument of every entry point: repro::kFloat32 and
+# repro::kBFloat16 in csrc/common.cuh
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM = 232_448  # bytes of shared memory a block may use on the H100
 
 
 class BuildError(RuntimeError):

@@ -26,8 +26,6 @@ import torch
 from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232_448  # bytes of shared memory a block may use on the H100
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,7 +59,7 @@ def _check_cuda(q, k, v, block_q: int, block_k: int,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}; "
                              f"all inputs must be on one CUDA device")
-        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+        if t.dtype not in _build.DTYPE_CODE or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}; the "
                              f"kernel takes float32 or bfloat16, one dtype")
         if t.dim() != 4 or not t.is_contiguous():
@@ -77,7 +75,7 @@ def _check_cuda(q, k, v, block_q: int, block_k: int,
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not 1 <= block_q <= 1024 or block_k < 1 or \
-            2 * block_k * hd * 4 > _MAX_SMEM:
+            2 * block_k * hd * 4 > _build.MAX_SMEM:
         raise ValueError(f"flash_attention: block_q {block_q}, block_k "
                          f"{block_k} out of range")
     if window is not None and window < 1:
@@ -99,9 +97,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     err = lib.repro_flash_attention_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, h, k.shape[2], hd, block_q, block_k,
-        int(causal), window or 0,
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, s, h, k.shape[2], hd, block_q,
+        block_k, int(causal), window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

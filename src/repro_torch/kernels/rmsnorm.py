@@ -24,8 +24,6 @@ import torch
 from . import _build
 
 ROWS_PER_BLOCK = 8  # kRowsPerBlock in csrc/rmsnorm.cu
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232_448  # bytes of shared memory a block may use on the H100
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
@@ -46,7 +44,7 @@ def _check_cuda(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError(f"rmsnorm_pipelined: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")
-    if x.dtype not in _DTYPE_CODE or scale.dtype != x.dtype:
+    if x.dtype not in _build.DTYPE_CODE or scale.dtype != x.dtype:
         raise ValueError(f"rmsnorm_pipelined: x {x.dtype}, scale "
                          f"{scale.dtype}; the kernel takes float32 or "
                          f"bfloat16, one dtype")
@@ -60,7 +58,7 @@ def _check_cuda(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"rmsnorm_pipelined: rows of {row_bytes} bytes at "
                          f"{x.data_ptr():#x}; cp.async needs 16-byte "
                          f"multiples and alignment")
-    if 2 * ROWS_PER_BLOCK * row_bytes > _MAX_SMEM:
+    if 2 * ROWS_PER_BLOCK * row_bytes > _build.MAX_SMEM:
         raise ValueError(f"rmsnorm_pipelined: D={x.shape[1]} too wide for "
                          f"the shared-memory ring")
 
@@ -79,8 +77,9 @@ def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
     grid = min(n_blocks, _sm_count(x.device.index))
     out = torch.empty_like(x)
     err = lib.repro_rmsnorm_pipelined_fwd(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        r, d, eps, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), r, d, eps, grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rmsnorm_pipelined")
     rmsnorm_pipelined.launches += 1
     return out
