@@ -8,16 +8,24 @@ Phases, in order; any failure exits non-zero and no phase catches another's
 error:
   1. the card's name and power limit, torch/CUDA versions; TF32 off;
   2. build the kernel library from src/repro_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card at
-     qwen2-0.5b widths, with its time, the plain version's, its bound and a
-     library call's as a yardstick;
+  3. each kernel against its plain PyTorch version on the card at the
+     main path's widths (qwen2-0.5b and hymba-1.5b), with its time, the
+     plain version's, its bound and a library call's as a yardstick;
   4. prefill at full qwen2-0.5b width (B 4 x S 1024) through
      `make_prefill_step`, kernel path against forced-plain path, with the
      launch counts of each kernel;
   5. continuous-batching serve at full width (`ServeEngine`, 8 slots,
      12 requests), a mid-stream admission against a solo run; then a
      `torch.profiler` window of 20 steady decode ticks and the device's
-     idle share in it.
+     idle share in it;
+  6. prefill at full hymba-1.5b width (B 2 x S 2048, past the 1024-token
+     window): the bf16 main path with its launch counts and a
+     `torch.profiler` pass over it, then the kernel path against the
+     forced-plain path in f32;
+  7. continuous-batching serve of hymba-1.5b at full width, as phase 5;
+  8. the sliding-window ring cache on the card: hymba-1.5b at full width,
+     depth cut to 2 layers, f32, one request of 1100 prompt tokens fed by
+     decode through a 1024-entry ring, its last 8 logits against `forward`.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -32,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +50,7 @@ SRC = ROOT / "src"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 ARCH = "qwen2-0.5b"
+HYBRID_ARCH = "hymba-1.5b"
 
 
 class SmokeFailure(RuntimeError):
@@ -134,8 +144,9 @@ def compare(out, plain, dt_name: str, f32_atol: float):
 
 
 def check_flash_attention(torch, ops, F, dt_name: str, *, s=1024,
-                          window=None, block_q=64, block_k=64, timed=False):
-    b, h, kv, hd = 4, 14, 2, 64
+                          window=None, block_q=64, block_k=64, timed=False,
+                          b=4, h=14, kv=2):
+    hd = 64
     dtype = getattr(torch, dt_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = ((0.5 * torch.randn((b, s, n, hd), generator=gen,
@@ -162,9 +173,16 @@ def check_flash_attention(torch, ops, F, dt_name: str, *, s=1024,
         row["plain_ms"] = time_ms(torch, lambda: ops.flash_attention_plain(
             q, k, v, window=window), samples=11, reps=3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["library_ms"] = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+        if window is None:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:  # the causal band of `window` keys as a boolean mask
+            pos = torch.arange(s, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        row["library_ms"] = time_ms(torch, library)
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
           + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
              f"plain_ms {row['plain_ms']:.4f}, library_ms "
@@ -197,6 +215,54 @@ def check_rmsnorm(torch, ops, F, dt_name: str, r: int, d: int = 896):
           f"{row['ms']:.4f} (call {row['call_ms']:.4f}), plain_ms "
           f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f}, "
           f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']})")
+    return row
+
+
+def check_ssm_scan(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
+                   n=16, c_name=None, timed=False):
+    """The selective scan against `ssm_scan_plain` on the same inputs.  It
+    returns f32 and computes in f32 whatever its input type, so every case
+    is held to 1e-4 absolute + 1e-4 relative, the tolerance of the
+    reference's kernel test (`tests/test_kernels.py::TestSsmKernel`): the
+    recurrence fused into one multiply-add, the readout summed in another
+    order."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a = torch.sigmoid(torch.randn((b, s, din, n), generator=gen,
+                                  device="cuda") + 1.0)
+    bx = torch.randn((b, s, din, n), generator=gen, device="cuda")
+    c = torch.randn((b, s, n), generator=gen, device="cuda")
+    a, bx = a.to(getattr(torch, dt_name)), bx.to(getattr(torch, dt_name))
+    c = c.to(getattr(torch, c_name or dt_name))
+    out = ops.ssm_scan(a, bx, c)
+    plain = ops.ssm_scan_plain(a, bx, c)
+    torch.cuda.synchronize()
+    atol = rtol = 1e-4
+    diff = (out - plain).abs()
+    err = diff.max().item()
+    within = (diff - rtol * plain.abs() - atol).max().item() <= 0
+    tol = f"{atol:g} + {rtol:g}*|plain|"
+    case = (f"ssm_scan a/bx {dt_name} c {c.dtype} B{b} S{s} din{din} "
+            f"N{n}")
+    require(out.dtype == torch.float32 and tuple(out.shape) == (b, s, din),
+            f"{case}: out {out.dtype} {tuple(out.shape)}")
+    require(torch.isfinite(out).all().item(), f"{case}: non-finite")
+    require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
+    row = {"case": case, "max_abs_err": err, "tol": tol}
+    if timed:
+        nbytes = a.nbytes + bx.nbytes + c.nbytes + out.nbytes
+        row["bound_ms"], row["bound_by"] = bound(4.0 * b * s * din * n,
+                                                 nbytes, "float32")
+        kernel = lambda: ops.ssm_scan(a, bx, c)  # noqa: E731
+        row["ms"] = time_ms(torch, kernel)
+        row["call_ms"] = call_ms(torch, kernel)
+        # a Python loop of S steps: a few samples of one call each
+        row["plain_ms"] = call_ms(torch, lambda: ops.ssm_scan_plain(
+            a, bx, c), samples=3, reps=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
+          + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
+             f"plain_ms {row['plain_ms']:.2f}, library_ms none, bound_ms "
+             f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
     return row
 
 
@@ -297,7 +363,7 @@ def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name):
 
     tokens = sum(len(r.generated) for r in reqs)
     fed = sum(len(r.prompt) for r in reqs)
-    print(f"  serve on {gpu_name}: {n_req} requests, {slots} slots, "
+    print(f"  {cfg.name} serve on {gpu_name}: {n_req} requests, {slots} slots, "
           f"{engine.ticks} ticks, {seconds:.3f} s, {tokens} new tokens "
           f"({tokens / seconds:.1f} tokens/s; {fed} prompt tokens fed by "
           f"decode), {seconds / engine.ticks * 1e3:.3f} ms/tick, peak "
@@ -309,6 +375,214 @@ def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name):
             "ms_per_tick": seconds / engine.ticks * 1e3,
             "peak_bytes": peak, "launches": counts,
             "mid_stream_rids": [r.rid for r in mid_stream]}
+
+
+# -- phases 6 and 8 -----------------------------------------------------------
+
+def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
+                       init_params):
+    """hymba-1.5b prefill, B 2 x S 2048 (twice the 1024-token window, so
+    K1's band is exercised).
+
+    The main path runs in the config's bf16 with the launch counts reset
+    just before it.  In f32 the kernel path is held against the
+    forced-plain path by phase 4's rule.  In bf16 the random-weight hybrid
+    stack drifts further than that rule under any change in the order of
+    rounding (the kernel and plain paths round attention's probabilities at
+    different places), so the bf16 paths are each held against the f32
+    plain path on the same weights unrounded (`init_params` draws in f32
+    and casts): the kernel path's mean abs error may be at most 1.25x the
+    plain path's, and its top-1 agreement at most 0.02 lower."""
+    b, s = 2, 2048
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel16 = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(tuple(kernel16.shape) == (b, s, cfg.vocab_size),
+            f"hybrid prefill logits shape {tuple(kernel16.shape)}")
+    require(torch.isfinite(kernel16).all().item(),
+            "hybrid prefill logits not finite")
+    expect = {"flash_attention": cfg.n_layers,
+              "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+              "ssm_scan": cfg.n_layers}
+    require(counts == expect, f"hybrid prefill: launches {counts}, "
+            f"expected {expect}")
+    print(f"  {cfg.name} bf16 prefill B{b} S{s}: {seconds:.3f} s, launches "
+          f"{counts}")
+    profile = profile_prefill(torch, prefill, params, tokens)
+    with flags(force_plain=True):
+        plain16 = prefill(params, {"tokens": tokens})
+
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        0))
+    prefill32 = make_prefill_step(cfg32)
+    t0 = time.perf_counter()
+    kernel32 = prefill32(params32, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds32 = time.perf_counter() - t0
+    with flags(force_plain=True):
+        plain32 = prefill32(params32, {"tokens": tokens})
+    torch.cuda.synchronize()
+    require(torch.isfinite(kernel32).all().item(),
+            "hybrid f32 prefill logits not finite")
+
+    scale = plain32.abs().max().item()
+
+    def against(x, ref):
+        diff = (x - ref).abs()
+        top1 = (x.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        return diff.max().item(), diff.mean().item(), top1
+
+    err, _, top1 = against(kernel32, plain32)
+    rel_tol = 2e-2
+    print(f"  {cfg.name} f32 prefill B{b} S{s}: {seconds32:.3f} s; logits "
+          f"max|kernel-plain| {err:.3e} of max|logit| {scale:.3f} (tol "
+          f"{rel_tol:g} x max|logit|), top-1 agreement {top1:.5f}")
+    require(err <= rel_tol * scale,
+            f"hybrid prefill: kernel vs plain logits differ by {err}")
+    require(top1 >= 0.99, f"hybrid prefill: top-1 agreement {top1} < 0.99")
+
+    drift = {"kernel": against(kernel16, plain32),
+             "plain": against(plain16, plain32),
+             "kernel_vs_plain": against(kernel16, plain16)}
+    for name, (mx, mean, t1) in drift.items():
+        print(f"  bf16 {name.replace('_', ' ')}"
+              f"{'' if name == 'kernel_vs_plain' else ' vs f32 plain'}: "
+              f"max {mx:.4f}, mean {mean:.5f} of max|logit| {scale:.3f}, "
+              f"top-1 {t1:.5f}")
+    (_, k_mean, k_top1), (_, p_mean, p_top1) = drift["kernel"], \
+        drift["plain"]
+    require(k_mean <= 1.25 * p_mean,
+            f"hybrid bf16 prefill: kernel path mean error {k_mean} vs f32, "
+            f"plain path {p_mean}")
+    require(k_top1 >= p_top1 - 0.02,
+            f"hybrid bf16 prefill: kernel path top-1 {k_top1} vs f32, "
+            f"plain path {p_top1}")
+    return {"B": b, "S": s, "seconds": seconds, "launches": counts,
+            "profile": profile, "f32_seconds": seconds32,
+            "max_abs_err": err, "max_abs_logit": scale, "top1": top1,
+            "bf16_drift": {k: dict(zip(("max", "mean", "top1"), v))
+                           for k, v in drift.items()}}
+
+
+def device_time(torch, prof, wall_us: float, top: int = 10):
+    """Busy time (the union of the device's activity intervals), idle share
+    against `wall_us`, and the largest kernels by summed device time."""
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy_us, reach = 0.0, -float("inf")
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return device, busy_us, sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:top]
+
+
+def profile_prefill(torch, prefill, params, tokens):
+    """`torch.profiler` over one prefill: device busy time and idle share
+    of the host-clock wall, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device, busy_us, top = device_time(torch, prof, wall_us)
+    row = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": (1 - busy_us / wall_us) if device else None,
+           "device_activities": len(device),
+           "top_device_ms": {n: t / 1e3 for n, t in top}}
+    if not device:
+        print("  prefill profile: the profiler saw no device activity; "
+              "device idle share not measured")
+        return row
+    print(f"  prefill profile (one bf16 prefill): {row['wall_ms']:.3f} ms "
+          f"wall, device busy {row['device_busy_ms']:.3f} ms, idle share "
+          f"{row['device_idle_share']:.4f}, {len(device)} device "
+          f"activities")
+    for name, ms in row["top_device_ms"].items():
+        print(f"    {ms:.4f} ms  {name[:100]}")
+    return row
+
+
+def run_ring_wrap(torch, np, ops, cfg, ServeEngine, Request, forward,
+                  init_params):
+    """One request of 1100 prompt tokens fed by decode through a ring of
+    min(max_len 1152, window 1024) = 1024 entries, so its last positions
+    overwrite the ring's oldest; its logits at each of the last 8 positions
+    against `forward` over the same tokens through the kernels (K1 with the
+    window, K4).  Full width, depth cut to 2 layers so the 1100 ticks fit
+    the time limit, f32.  Tolerance 1e-3 of the largest logit: the same f32
+    model, but decode takes a product per token and the plain recurrence
+    where prefill takes one product over the sequence, K1 and K4, summed in
+    other orders; a ring that dropped or kept a wrong entry moves a logit by
+    more (phase 8's CPU counterpart, `tests/test_torch_hybrid.py`, holds
+    decode past the window to the reference at 1e-4)."""
+    cfg = replace(cfg, n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_prompt, max_len, last = 1100, 1152, 8
+    rng = np.random.default_rng(8)
+    prompt = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           size=n_prompt)]
+    engine = ServeEngine(cfg, params, batch_slots=1, max_len=max_len)
+    ring = engine.state["groups"][0]["kv"]["k"].shape[2]
+    require(ring == cfg.window, f"ring of {ring} entries, expected "
+            f"{cfg.window}")
+    req = Request(rid=0, prompt=prompt, max_new_tokens=1)
+    engine.submit(req)
+    decoded = []
+    t0 = time.perf_counter()
+    while engine.active:
+        engine.tick()
+        if engine.ticks > n_prompt - last:
+            decoded.append(engine.last_logits[0].clone())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(engine.ticks == n_prompt and len(decoded) == last,
+            f"ring: {engine.ticks} ticks, {len(decoded)} logits kept")
+    ops.reset_launch_counts()
+    # chunk 100 divides 1100; it matters only to the plain path
+    full, _ = forward(params, cfg, torch.tensor([prompt], device="cuda"),
+                      chunk=100)
+    counts = ops.launch_counts()
+    require(counts["flash_attention"] == cfg.n_layers and
+            counts["ssm_scan"] == cfg.n_layers,
+            f"ring: forward launches {counts}")
+    expect = full[0, n_prompt - last:]
+    got = torch.stack(decoded)
+    scale = expect.abs().max().item()
+    err = (got - expect).abs().max().item()
+    same_top1 = bool((got.argmax(-1) == expect.argmax(-1)).all().item())
+    rel_tol = 1e-3
+    print(f"  ring wrap ({cfg.n_layers} layers, f32, ring {ring}): "
+          f"{n_prompt} ticks in {seconds:.3f} s; logits at positions "
+          f"{n_prompt - last}..{n_prompt - 1} max|decode-forward| "
+          f"{err:.3e} of max|logit| {scale:.3f} (tol {rel_tol:g} x "
+          f"max|logit|), same top-1: {same_top1}")
+    require(err <= rel_tol * scale,
+            f"ring: decode vs forward logits differ by {err}")
+    require(same_top1, "ring: decode and forward disagree on a top-1")
+    return {"layers": cfg.n_layers, "ring": ring, "ticks": engine.ticks,
+            "seconds": seconds, "max_abs_err": err, "max_abs_logit": scale,
+            "forward_launches": counts}
 
 
 def profile_decode(torch, np, cfg, params, ServeEngine, Request, ticks: int):
@@ -335,18 +609,7 @@ def profile_decode(torch, np, cfg, params, ServeEngine, Request, ticks: int):
             engine.tick()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy_us, reach = 0.0, -float("inf")
-    for start, end in spans:
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    device, busy_us, top = device_time(torch, prof, wall_us, top=8)
     row = {"ticks": ticks, "wall_ms_per_tick": wall_us / ticks / 1e3,
            "device_busy_ms_per_tick": busy_us / ticks / 1e3,
            "device_idle_share": (1 - busy_us / wall_us) if device else None,
@@ -389,7 +652,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import Request, ServeEngine
-    from repro_torch.models import init_params
+    from repro_torch.models import forward, init_params
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
 
@@ -422,7 +685,10 @@ def main(argv=None) -> int:
     # phase 3
     print("phase 3: kernels against their plain versions")
     fa = [check_flash_attention(torch, ops, F, "bfloat16", timed=True),
-          check_flash_attention(torch, ops, F, "float32", timed=True)]
+          check_flash_attention(torch, ops, F, "float32", timed=True),
+          # hymba-1.5b's prefill: B 2 x S 2048, 25 / 5 heads, window 1024
+          check_flash_attention(torch, ops, F, "bfloat16", timed=True, b=2,
+                                s=2048, h=25, kv=5, window=1024)]
     for dt in ("bfloat16", "float32"):
         fa += [check_flash_attention(torch, ops, F, dt, window=256),
                check_flash_attention(torch, ops, F, dt, block_q=64,
@@ -432,6 +698,15 @@ def main(argv=None) -> int:
                check_flash_attention(torch, ops, F, dt, s=1000)]
     rms = [check_rmsnorm(torch, ops, F, dt, r)
            for r in (8, 4096) for dt in ("bfloat16", "float32")]
+    # the main path's shape first: hymba prefill, a/bx/c in f32 as the
+    # model makes them
+    scan = [check_ssm_scan(torch, ops, "float32", timed=True),
+            check_ssm_scan(torch, ops, "bfloat16", timed=True),
+            check_ssm_scan(torch, ops, "bfloat16", c_name="float32"),
+            check_ssm_scan(torch, ops, "float32", s=1000)]
+    scan += [check_ssm_scan(torch, ops, dt, s=s, din=din, n=n)
+             for s, din, n in ((32, 128, 8), (64, 256, 16))
+             for dt in ("float32", "bfloat16")]
 
     # phases 4 and 5
     cfg = get_config(ARCH)
@@ -447,14 +722,41 @@ def main(argv=None) -> int:
                       gpu_name)
     serve["decode_profile"] = profile_decode(
         torch, np, cfg, params, ServeEngine, Request, ticks=20)
+    del params
+    torch.cuda.empty_cache()
+
+    # phases 6, 7 and 8
+    hcfg = get_config(HYBRID_ARCH)
+    hparams = init_params(hcfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(hparams))
+    print(f"phase 6: prefill, {HYBRID_ARCH} at full width ({hcfg.n_layers} "
+          f"hybrid layers, d_model {hcfg.d_model}, {hcfg.n_heads} heads / "
+          f"{hcfg.n_kv_heads} KV heads, window {hcfg.window}, d_inner "
+          f"{hcfg.ssm_expand * hcfg.d_model}, N {hcfg.ssm_state}, "
+          f"{n_params / 1e9:.3f} B parameters, {hcfg.dtype}, random weights "
+          f"from seed 0)")
+    hprefill = run_hybrid_prefill(torch, ops, hcfg, hparams, flags,
+                                  make_prefill_step, init_params)
+    print(f"phase 7: continuous-batching serve, {HYBRID_ARCH}")
+    hserve = run_serve(torch, np, ops, hcfg, hparams, ServeEngine, Request,
+                       gpu_name)
+    hserve["decode_profile"] = profile_decode(
+        torch, np, hcfg, hparams, ServeEngine, Request, ticks=20)
+    del hparams
+    torch.cuda.empty_cache()
+    print(f"phase 8: sliding-window ring wrap, {HYBRID_ARCH}")
+    ring = run_ring_wrap(torch, np, ops, hcfg, ServeEngine, Request, forward,
+                         init_params)
 
     main_fa, main_rms = fa[0], rms[2]  # bf16 at the prefill shapes
+    main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
+    main_runs = (prefill, serve, hprefill, hserve)
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:99",
-         "launches": prefill["launches"]["flash_attention"]
-         + serve["launches"]["flash_attention"],
+         "launches": sum(r["launches"]["flash_attention"]
+                         for r in main_runs),
          "max_abs_err": max(r["max_abs_err"] for r in fa),
          "ms": main_fa["ms"], "plain_ms": main_fa["plain_ms"],
          "bound_ms": main_fa["bound_ms"], "bound_by": main_fa["bound_by"],
@@ -462,19 +764,32 @@ def main(argv=None) -> int:
         {"name": "rmsnorm_pipelined", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:90",
-         "launches": prefill["launches"]["rmsnorm_pipelined"]
-         + serve["launches"]["rmsnorm_pipelined"],
+         "launches": sum(r["launches"]["rmsnorm_pipelined"]
+                         for r in main_runs),
          "max_abs_err": max(r["max_abs_err"] for r in rms),
          "ms": main_rms["ms"], "plain_ms": main_rms["plain_ms"],
          "bound_ms": main_rms["bound_ms"], "bound_by": main_rms["bound_by"],
          "library_ms": main_rms["library_ms"]},
+        {"name": "ssm_scan", "route": "cuda", "status": "ok",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:38",
+         "launches": sum(r["launches"]["ssm_scan"] for r in main_runs),
+         "max_abs_err": max(r["max_abs_err"] for r in scan),
+         "ms": main_scan["ms"], "plain_ms": main_scan["plain_ms"],
+         "bound_ms": main_scan["bound_ms"],
+         "bound_by": main_scan["bound_by"], "library_ms": None},
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: no launch on the main "
+                f"path")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build_s, "flash_attention": fa, "rmsnorm": rms,
-        "prefill": prefill, "serve": serve, "kernels": kernels}, indent=1))
+        "ssm_scan": scan, "prefill": prefill, "serve": serve,
+        "hybrid_prefill": hprefill, "hybrid_serve": hserve,
+        "ring_wrap": ring, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu_name,

@@ -7,8 +7,9 @@ queued requests.  Every slot decodes at its own position, so a freed slot
 admits a new request at pos 0 while its neighbours keep decoding.  Prompts
 enter by teacher-forced decode of their tokens (prefill-by-decode).
 
-  python -m repro_torch.launch.serve            # full qwen2-0.5b on the card
-  python -m repro_torch.launch.serve --smoke --device cpu
+  python -m repro_torch.launch.serve                     # qwen2-0.5b, card
+  python -m repro_torch.launch.serve --arch hymba-1.5b   # full width, card
+  python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -49,6 +50,11 @@ class ServeEngine:
         self.device = torch.device(device)
         self.state = init_decode_state(cfg, batch_slots, max_len,
                                        self.device)
+        # one slot of pristine state, copied into a slot at admission:
+        # recurrent mixers carry state across tokens, so a reused slot must
+        # not pass its previous occupant's state to the next request
+        self._fresh_state = init_decode_state(cfg, 1, max_len, self.device)
+        self.last_logits: Optional[torch.Tensor] = None  # (B, V), last tick
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: List[Request] = []
         self.ticks = 0
@@ -58,12 +64,19 @@ class ServeEngine:
         self.queue.append(request)
 
     def _reset_slot_state(self, idx: int) -> None:
-        """Zero batch slot `idx` (axis 1 of every (L, B, ...) state leaf), the
-        fresh state: the previous occupant's cache never reaches the next
-        request (position masking would hide it too; it is the same write)."""
-        for group in self.state["groups"]:
-            for buf in group["kv"].values():
-                buf[:, idx].zero_()
+        """Overwrite batch slot `idx` (axis 1 of every (L, B, ...) state
+        leaf) with freshly initialized decode state, in place."""
+        def copy(state, fresh):
+            if isinstance(state, dict):
+                for key in state:
+                    copy(state[key], fresh[key])
+            elif isinstance(state, list):
+                for st, fr in zip(state, fresh):
+                    copy(st, fr)
+            else:
+                state[:, idx] = fresh[:, 0]
+
+        copy(self.state, self._fresh_state)
 
     def _fill_slots(self) -> None:
         for i, slot in enumerate(self.slots):
@@ -91,7 +104,7 @@ class ServeEngine:
                 tokens[i] = r.prompt[slot.feed_idx]
             else:
                 tokens[i] = r.generated[-1] if r.generated else 0
-        next_tok, _, self.state = self._step(
+        next_tok, self.last_logits, self.state = self._step(
             self.params, self.state, torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(pos).to(self.device))
         next_tok = next_tok.cpu().numpy()

@@ -1,4 +1,5 @@
-"""PyTorch model zoo of the port (dense GQA transformer in this slice)."""
+"""PyTorch model zoo of the port: dense GQA and hybrid attention + SSM
+transformers, full or sliding-window attention."""
 from .convert import decode_state_from_numpy, params_from_numpy
 from .transformer import (
     decode_step,

@@ -1,10 +1,12 @@
-"""GQA attention (the port of the GQA part of `repro.models.attention`).
+"""GQA attention, causal or sliding-window (the port of the GQA part of
+`repro.models.attention`).
 
 Prefill runs the flash-attention kernel on CUDA tensors; `chunked_attention`
 is the plain path (CPU tensors, or `flags(force_plain=True)`).  Decode is
 plain PyTorch, as the reference's `decode_attention` is plain jnp, against a
-layer-stacked KV cache (L, B, S, Kv, hd) with one position per batch slot.
-Sliding-window attention and MLA belong to later slices of the port.
+layer-stacked KV cache (L, B, S, Kv, hd) with one position per batch slot;
+under sliding-window attention the cache is a ring of `min(max_len,
+window)` entries.  MLA belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -23,11 +25,13 @@ Params = Dict[str, torch.Tensor]
 _NEG_INF = -1e30
 
 
-def _full_only(cfg: ArchConfig) -> None:
-    if cfg.attention != "full":
+def _window(cfg: ArchConfig) -> Optional[int]:
+    """The sliding window of `cfg`, None for full causal attention."""
+    if cfg.attention not in ("full", "swa"):
         raise NotImplementedError(
             f"attention={cfg.attention!r} ({cfg.name}) is not ported yet; "
-            f"this slice serves full causal GQA attention")
+            f"the port serves full and sliding-window GQA attention")
+    return cfg.window if cfg.attention == "swa" else None
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,8 +106,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """Full-sequence causal attention (prefill)."""
-    _full_only(cfg)
+    """Full-sequence causal attention (prefill), windowed under SWA."""
+    window = _window(cfg)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
@@ -113,19 +117,20 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if x.device.type == "cuda" and not get_flags().force_plain:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = chunked_attention(q, k, v, chunk=chunk)
+        out = chunked_attention(q, k, v, chunk=chunk, window=window)
     return linear(out.reshape(b, s, h * hd), p["wo"])
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device) -> Params:
-    _full_only(cfg)
+    window = _window(cfg)
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+    s = max_len if window is None else min(max_len, window)
+    return {"k": torch.zeros((batch, s, kv, hd), dtype=dtype,
                              device=device),
-            "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+            "v": torch.zeros((batch, s, kv, hd), dtype=dtype,
                              device=device)}
 
 
@@ -134,11 +139,14 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
     """x (B, d); pos (B,) int, one position per batch slot.
 
     `cache` holds layer-stacked buffers (L, B, S, Kv, hd).  The new token's
-    K/V are written in place at (layer_idx, b, pos[b]): the in-place update
+    K/V are written in place at (layer_idx, b, slot[b]): the in-place update
     replaces the reference's functional `dynamic_update_slice`, so a step
-    costs one token of writes per layer and no copy of the cache.  Returns
-    y (B, d); the cache is updated in place."""
-    _full_only(cfg)
+    costs one token of writes per layer and no copy of the cache.  Under
+    SWA the cache is a ring: slot[b] = pos[b] % S, and once pos[b] >= S
+    every entry holds one of the last S positions and is valid (the
+    reference's `attn_decode`, written per batch slot).  Returns y (B, d);
+    the cache is updated in place."""
+    window = _window(cfg)
     b, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = linear(x, p["wq"], p.get("bq")).reshape(b, h, hd)
@@ -148,11 +156,15 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    slots = torch.arange(b, device=x.device)
-    cache["k"][layer_idx, slots, pos] = k.to(cache["k"].dtype)
-    cache["v"][layer_idx, slots, pos] = v.to(cache["v"].dtype)
+    cache_len = cache["k"].shape[2]
+    slot = pos if window is None else pos % cache_len
+    rows = torch.arange(b, device=x.device)
+    cache["k"][layer_idx, rows, slot] = k.to(cache["k"].dtype)
+    cache["v"][layer_idx, rows, slot] = v.to(cache["v"].dtype)
     k_cache, v_cache = cache["k"][layer_idx], cache["v"][layer_idx]
-    idx = torch.arange(k_cache.shape[1], device=x.device)
-    valid = idx[None, :] <= pos[:, None]
+    idx = torch.arange(cache_len, device=x.device)
+    valid = idx[None, :] <= slot[:, None]
+    if window is not None:
+        valid = valid | (pos[:, None] >= cache_len)
     out = decode_attention(q, k_cache, v_cache, valid)
     return linear(out.reshape(b, h * hd), p["wo"])

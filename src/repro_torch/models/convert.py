@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from .ssm import F32_LEAVES
 from .transformer import torch_dtype
 
 
@@ -27,17 +28,20 @@ def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
-def _tree(tree, device, dtype: Optional[torch.dtype]):
+def _tree(tree, device, dtype: Optional[torch.dtype], name: str = ""):
     if isinstance(tree, dict):
-        return {k: _tree(v, device, dtype) for k, v in tree.items()}
+        return {k: _tree(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree(v, device, dtype) for v in tree]
+        return [_tree(v, device, dtype, name) for v in tree]
+    if dtype is not None and name in F32_LEAVES:
+        dtype = torch.float32
     return _tensor(np.asarray(tree), device, dtype)
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
-    """The reference's param tree (numpy leaves) as the port's params, in the
-    config's dtype."""
+    """The reference's param tree (numpy leaves) as the port's params, each
+    leaf in the dtype the reference gives it: the config's dtype, but f32
+    for the SSM leaves the reference keeps in f32 (`ssm.F32_LEAVES`)."""
     table = tree["embed"]["table"]
     if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embedding {tuple(table.shape)} does not match "

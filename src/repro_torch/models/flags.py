@@ -3,8 +3,8 @@
 The port's counterpart of `repro.models.flags`.  It has one switch:
 
   force_plain : False — every CUDA tensor goes through the hand-written
-                        kernels (flash attention in prefill, RMSNorm at every
-                        norm);
+                        kernels (flash attention and the selective scan in
+                        prefill, RMSNorm at every norm);
                 True  — the models take their plain PyTorch paths on the card
                         too.  It exists so `chip_smoke.py` can hold the kernel
                         path against the plain one on the same inputs; nothing

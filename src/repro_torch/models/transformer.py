@@ -1,10 +1,12 @@
-"""Model assembly (the port of `repro.models.transformer`, dense GQA part).
+"""Model assembly (the port of `repro.models.transformer`: dense GQA and
+hybrid attention + SSM blocks).
 
 Layers are described by (mixer, ffn) descriptors, run-length encoded into
 groups whose params carry a leading `reps` axis, exactly as in the reference,
 so a param tree converts leaf for leaf.  A Python loop over the layers of a
-group stands in for `lax.scan`.  This slice runs the ("attn", "mlp")
-descriptor; the other mixers and FFNs raise `NotImplementedError`.
+group stands in for `lax.scan`.  The port runs the ("attn", "mlp") and
+("hybrid", "mlp") descriptors, with full or sliding-window attention; the
+other mixers and FFNs raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -14,11 +16,12 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import embed, mlp, rmsnorm, unembed
 
 Params = Dict
 
-_PORTED = ("attn", "mlp")
+_PORTED = (("attn", "mlp"), ("hybrid", "mlp"))
 
 
 # -- static layer plan -------------------------------------------------------
@@ -57,16 +60,17 @@ def layer_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, str], int]]:
 def _ported_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, str], int]]:
     groups = layer_groups(cfg)
     for desc, _ in groups:
-        if desc != _PORTED:
+        if desc not in _PORTED:
             raise NotImplementedError(
-                f"layer {desc} of {cfg.name} is not ported yet; this slice "
+                f"layer {desc} of {cfg.name} is not ported yet; the port "
                 f"runs {_PORTED} blocks")
-    if cfg.attention != "full" or cfg.mlp_kind != "swiglu" or \
+    if cfg.attention not in ("full", "swa") or cfg.mlp_kind != "swiglu" or \
             cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name} (attention={cfg.attention!r}, mlp={cfg.mlp_kind!r}, "
-            f"frontend={cfg.frontend!r}) is not ported yet; this slice runs "
-            f"full GQA attention, a SwiGLU MLP and token inputs")
+            f"frontend={cfg.frontend!r}) is not ported yet; the port runs "
+            f"full or sliding-window GQA attention, a SwiGLU MLP and token "
+            f"inputs")
     return groups
 
 
@@ -78,18 +82,19 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
-    """Fresh weights with the reference's shapes and init scales
+    """Fresh weights with the reference's shapes, dtypes and init scales
     (`transformer.py::init_params`: normal 0.02 for projections, 1.0 for the
-    embedding, zero biases, unit norms).  The numbers differ from
-    `jax.random`'s; parity tests convert the reference's own weights with
-    `convert.params_from_numpy` instead."""
+    embedding and the SSM's `w_dt`, zero biases, unit norms; `ssm.py::
+    init_ssm`: `a_log = log(1..N)`, unit `d_skip`, those three leaves in
+    f32).  The numbers differ from `jax.random`'s; parity tests convert the
+    reference's own weights with `convert.params_from_numpy` instead."""
     dtype = torch_dtype(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    def normal(shape, scale):
+    def normal(shape, scale, out_dtype=dtype):
         t = torch.randn(shape, generator=generator, device=generator.device)
-        return (t * scale).to(device=device, dtype=dtype)
+        return (t * scale).to(device=device, dtype=out_dtype)
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -111,8 +116,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         ffn = {"w_gate": normal((reps, d, cfg.d_ff), 0.02),
                "w_up": normal((reps, d, cfg.d_ff), 0.02),
                "w_down": normal((reps, cfg.d_ff, d), 0.02)}
-        groups.append({"ln1": ones((reps, d)), "attn": attn,
-                       "ln2": ones((reps, d)), "ffn": ffn})
+        block = {"ln1": ones((reps, d)), "attn": attn}
+        if desc[0] == "hybrid":
+            block["ssm"] = ssm_mod.init_ssm(cfg, reps, normal, dtype, device)
+        block.update(ln2=ones((reps, d)), ffn=ffn)
+        groups.append(block)
     params["groups"] = groups
     params["final_norm"] = ones((d,))
     if not cfg.tie_embeddings:
@@ -146,11 +154,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     slice."""
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    for (_, reps), stacked in zip(_ported_groups(cfg), params["groups"]):
+    for ((mixer, _), reps), stacked in zip(_ported_groups(cfg),
+                                           params["groups"]):
         for i in range(reps):
             p = _layer(stacked, i)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
+            y = attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
+            if mixer == "hybrid":
+                y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], h, cfg))
+            x = x + y
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
             x = x + mlp(h, p["ffn"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -161,14 +173,20 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> Params:
-    """Per-group layer-stacked KV caches {"kv": {"k", "v"}}, each
-    (reps, B, max_len, Kv, hd)."""
+    """Per-group layer-stacked decode state: KV caches {"kv": {"k", "v"}},
+    each (reps, B, S, Kv, hd) with S = max_len (a ring of min(max_len,
+    window) under SWA), and for hybrid blocks the SSM state {"ssm": {"h"}},
+    (reps, B, din, N) f32."""
     dtype = torch_dtype(cfg)
     groups = []
-    for _, reps in _ported_groups(cfg):
-        one = attn_mod.init_attn_cache(cfg, batch, max_len, dtype, device)
-        groups.append({"kv": {name: buf[None].repeat(reps, 1, 1, 1, 1)
-                              for name, buf in one.items()}})
+    for (mixer, _), reps in _ported_groups(cfg):
+        one = {"kv": attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
+                                              device)}
+        if mixer == "hybrid":
+            one["ssm"] = ssm_mod.init_ssm_state(cfg, batch, device)
+        groups.append({kind: {name: buf.expand(reps, *buf.shape).contiguous()
+                              for name, buf in leaves.items()}
+                       for kind, leaves in one.items()})
     return {"groups": groups}
 
 
@@ -177,19 +195,26 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
     """One decode step. token (B,) int; pos (B,) int, one position per slot
     (a scalar is broadcast to every slot).
 
-    Returns (logits (B, V) f32, state); the caches in `state` are updated in
-    place."""
+    Returns (logits (B, V) f32, state); the caches and recurrent states in
+    `state` are updated in place."""
     dtype = torch_dtype(cfg)
     pos = torch.as_tensor(pos, device=token.device).long().expand(
         token.shape[0])
     x = embed(token, params["embed"], dtype)
-    for (_, reps), stacked_p, stack in zip(
+    for ((mixer, _), reps), stacked_p, stack in zip(
             _ported_groups(cfg), params["groups"], state["groups"]):
         for i in range(reps):
             p = _layer(stacked_p, i)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
-                                         layer_idx=i)
+            y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
+                                     layer_idx=i)
+            if mixer == "hybrid":
+                # the SSM state is KBs: sliced out and written back whole
+                ys, new = ssm_mod.ssm_decode(p["ssm"], h,
+                                             _layer(stack["ssm"], i), cfg)
+                stack["ssm"]["h"][i] = new["h"]
+                y = 0.5 * (y + ys)
+            x = x + y
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
             x = x + mlp(h, p["ffn"])
     return _logits(params, x, cfg), state

@@ -8,8 +8,14 @@ and the port only, so it also runs where JAX is not installed:
 
 Tolerances, element by element: f32 2e-5 (flash attention) / 1e-5
 (RMSNorm), the same f32 arithmetic in another order; bf16 1e-4 + 2^-7 of the
-value, one bf16 step apart after each side rounds its f32 result.
+value, one bf16 step apart after each side rounds its f32 result.  The
+selective scan returns f32 whatever its input type and computes in f32, so
+every case is held to 1e-4 absolute and relative, the tolerance of
+`tests/test_kernels.py::TestSsmKernel` (the recurrence fused into one
+multiply-add, the readout summed in another order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -102,8 +108,89 @@ def test_prefill_kernel_path_matches_plain_path():
     ops.reset_launch_counts()
     logits, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
-                                   "rmsnorm_pipelined": 2 * cfg.n_layers + 1}
+                                   "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+                                   "ssm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     assert (logits - plain).abs().max() <= 2e-2 * plain.abs().max()
+
+
+def _scan_inputs(b, s, din, n, dtype, device, c_dtype=None):
+    gen = torch.Generator(device=device).manual_seed(7)
+    a = torch.sigmoid(torch.randn((b, s, din, n), generator=gen,
+                                  device=device) + 1.0)
+    bx = torch.randn((b, s, din, n), generator=gen, device=device)
+    c = torch.randn((b, s, n), generator=gen, device=device)
+    dt = getattr(torch, dtype)
+    return a.to(dt), bx.to(dt), c.to(getattr(torch, c_dtype or dtype))
+
+
+@pytest.mark.parametrize("s,din,n,c_dtype", [
+    (32, 128, 8, None),       # the reference grid
+    (64, 256, 16, None),
+    (1000, 320, 16, None),    # ragged S, no multiple of the 8-step prefetch
+    (64, 100, 8, None),       # din no multiple of a block's channels
+    (64, 256, 16, "float32"),  # bf16 a/bx with an f32 readout (the model's)
+    (40, 64, 32, None),
+    (40, 64, 1, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan(s, din, n, c_dtype, dtype):
+    dev = _cuda()
+    a, bx, c = _scan_inputs(2, s, din, n, dtype, dev, c_dtype)
+    before = ops.ssm_scan.launches
+    out = ops.ssm_scan(a, bx, c, chunk=16)
+    assert ops.ssm_scan.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (2, s, din)
+    expect = ops.ssm_scan_plain(a, bx, c)
+    _close(out, expect, (1e-4, 1e-4))
+    # `chunk` is the TPU kernel's time block: it does not change the result
+    assert torch.equal(ops.ssm_scan(a, bx, c, chunk=s), out)
+
+
+def test_ssm_scan_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    a, bx, c = _scan_inputs(2, 16, 64, 16, "float32", dev)
+    before = ops.ssm_scan.launches
+    with pytest.raises(ValueError):  # N = 12 does not divide 32
+        ops.ssm_scan(a[..., :12].contiguous(), bx[..., :12].contiguous(),
+                     c[..., :12].contiguous())
+    with pytest.raises(ValueError):  # not contiguous
+        ops.ssm_scan(a.transpose(1, 2), bx.transpose(1, 2), c)
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        ops.ssm_scan(a, bx, c.cpu())
+    with pytest.raises(ValueError):  # a and bx of two dtypes
+        ops.ssm_scan(a, bx.bfloat16(), c)
+    with pytest.raises(ValueError):  # float16 is not instantiated
+        ops.ssm_scan(a.half(), bx.half(), c.half())
+    assert ops.ssm_scan.launches == before
+
+
+def test_swa_head_dim_120_raises_on_the_card():
+    """h2o-danube's hd 120 is not a head dim K1 is built for: on the card
+    its prefill raises rather than taking the plain path."""
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("h2o-danube-3-4b")),
+                              head_dim=120)
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 32), device=dev)
+    with pytest.raises(ValueError, match="head_dim 120"):
+        tt.forward(params, cfg, tokens=tokens)
+
+
+def test_hymba_prefill_kernel_path_matches_plain_path():
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("hymba-1.5b")),
+                              dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 160), device=dev)
+    ops.reset_launch_counts()
+    logits, _ = tt.forward(params, cfg, tokens=tokens)
+    assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
+                                   "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+                                   "ssm_scan": cfg.n_layers}
+    with flags(force_plain=True):
+        plain, _ = tt.forward(params, cfg, tokens=tokens)
+    assert ops.launch_counts()["ssm_scan"] == cfg.n_layers
+    _close(logits, plain, (1e-4, 1e-4))

@@ -155,7 +155,49 @@ def test_attn_decode_per_slot_positions():
         _close(t_cache["v"][:, i], np.asarray(new["v"])[:, 0], 1e-6)
 
 
-@pytest.mark.parametrize("attention", ["swa", "mla"])
+def test_attn_decode_swa_ring_per_slot_positions():
+    """Sliding-window decode against a ring of `window` entries, each slot
+    at its own position, some before the ring wraps and some after: the
+    reference decodes each slot alone with a scalar position."""
+    jcfg, tcfg = _f32_smoke()
+    jcfg = dataclasses.replace(jcfg, attention="swa", window=12)
+    tcfg = dataclasses.replace(tcfg, attention="swa", window=12)
+    j_layer, t_layer = _layer0_attn(jcfg, tcfg)
+    cache = t_attn.init_attn_cache(tcfg, 4, 40, torch.float32, "cpu")
+    b, s, kv, hd = 4, cache["k"].shape[1], jcfg.n_kv_heads, jcfg.head_dim_
+    assert s == 12  # min(max_len, window)
+    cache_np = RNG.standard_normal((2, b, s, kv, hd)).astype(np.float32)
+    pos = np.array([3, 11, 12, 30])
+    jx, tx = _pair(RNG.standard_normal((b, jcfg.d_model)))
+    t_cache = {"k": torch.from_numpy(cache_np.copy()),
+               "v": torch.from_numpy(-cache_np)}
+    out = t_attn.attn_decode(t_layer, tx, t_cache, torch.from_numpy(pos),
+                             tcfg, layer_idx=0)
+    for i in range(b):
+        j_cache = {"k": jnp.asarray(cache_np[:, i:i + 1]),
+                   "v": jnp.asarray(-cache_np[:, i:i + 1])}
+        y, new = j_attn.attn_decode(j_layer, jx[i:i + 1], j_cache,
+                                    jnp.asarray(pos[i]), jcfg,
+                                    layer_idx=jnp.asarray(0))
+        _close(out[i:i + 1], y, 1e-5)
+        _close(t_cache["k"][:, i], np.asarray(new["k"])[:, 0], 1e-6)
+        _close(t_cache["v"][:, i], np.asarray(new["v"])[:, 0], 1e-6)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_attn_forward_window(window):
+    jcfg, tcfg = _f32_smoke()
+    if window:
+        jcfg = dataclasses.replace(jcfg, attention="swa", window=window)
+        tcfg = dataclasses.replace(tcfg, attention="swa", window=window)
+    j_layer, t_layer = _layer0_attn(jcfg, tcfg)
+    jx, tx = _pair(RNG.standard_normal((2, 64, jcfg.d_model)))
+    out = t_attn.attn_forward(t_layer, tx, tcfg, torch.arange(64), chunk=16)
+    _close(out, j_attn.attn_forward(j_layer, jx, jcfg, jnp.arange(64),
+                                    chunk=16), 1e-5)
+
+
+@pytest.mark.parametrize("attention", ["none", "mla"])
 def test_later_mixers_raise(attention):
     cfg = dataclasses.replace(smoke_config(get_config("qwen2-0.5b")),
                               attention=attention)

@@ -48,6 +48,13 @@ assert logits.shape == (1, 3, cfg.vocab_size)
 engine = ServeEngine(cfg, params, 2, 16, device="cpu")
 engine.submit(Request(0, [5, 6], 2))
 engine.tick()
+cfg = smoke_config(get_config("hymba-1.5b"))
+params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+assert forward(params, cfg, torch.tensor([[1, 2, 3]]))[0].shape == \
+    (1, 3, cfg.vocab_size)
+engine = ServeEngine(cfg, params, 2, 16, device="cpu")
+engine.submit(Request(0, [5, 6], 2))
+engine.tick()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
@@ -113,13 +120,17 @@ def test_build_without_nvcc_raises(no_nvcc):
     assert not (no_nvcc.BUILD_DIR).exists()
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined",
+                                    "ssm_scan"])
 def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     from repro_torch.kernels import ops
     fn = ops.KERNELS[kernel]
     before = fn.launches
     if kernel == "flash_attention":
         args = [torch.empty((1, 64, 4, 16), device="meta")] * 3
+    elif kernel == "ssm_scan":
+        args = [torch.empty((2, 64, 256, 16), device="meta")] * 2 + \
+            [torch.empty((2, 64, 16), device="meta")]
     else:
         args = [torch.empty((8, 896), device="meta"),
                 torch.empty((896,), device="meta")]
