@@ -21,11 +21,12 @@ error:
   6. prefill at full hymba-1.5b width (B 2 x S 2048, past the 1024-token
      window): the bf16 main path with its launch counts and a
      `torch.profiler` pass over it, then the kernel path against the
-     forced-plain path in f32;
+     forced-plain path in f32, and what a window one key short gives;
   7. continuous-batching serve of hymba-1.5b at full width, as phase 5;
   8. the sliding-window ring cache on the card: hymba-1.5b at full width,
      depth cut to 2 layers, f32, one request of 1100 prompt tokens fed by
-     decode through a 1024-entry ring, its last 8 logits against `forward`.
+     decode through a 1024-entry ring, its last 8 logits against `forward`
+     (and against `forward` with a window one key short or long).
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -219,7 +220,7 @@ def check_rmsnorm(torch, ops, F, dt_name: str, r: int, d: int = 896):
 
 
 def check_ssm_scan(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
-                   n=16, c_name=None, timed=False):
+                   n=16, timed=False):
     """The selective scan against `ssm_scan_plain` on the same inputs.  It
     returns f32 and computes in f32 whatever its input type, so every case
     is held to 1e-4 absolute + 1e-4 relative, the tolerance of the
@@ -231,8 +232,8 @@ def check_ssm_scan(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
                                   device="cuda") + 1.0)
     bx = torch.randn((b, s, din, n), generator=gen, device="cuda")
     c = torch.randn((b, s, n), generator=gen, device="cuda")
-    a, bx = a.to(getattr(torch, dt_name)), bx.to(getattr(torch, dt_name))
-    c = c.to(getattr(torch, c_name or dt_name))
+    dtype = getattr(torch, dt_name)
+    a, bx, c = a.to(dtype), bx.to(dtype), c.to(dtype)
     out = ops.ssm_scan(a, bx, c)
     plain = ops.ssm_scan_plain(a, bx, c)
     torch.cuda.synchronize()
@@ -241,8 +242,7 @@ def check_ssm_scan(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
     err = diff.max().item()
     within = (diff - rtol * plain.abs() - atol).max().item() <= 0
     tol = f"{atol:g} + {rtol:g}*|plain|"
-    case = (f"ssm_scan a/bx {dt_name} c {c.dtype} B{b} S{s} din{din} "
-            f"N{n}")
+    case = f"ssm_scan {dt_name} B{b} S{s} din{din} N{n}"
     require(out.dtype == torch.float32 and tuple(out.shape) == (b, s, din),
             f"{case}: out {out.dtype} {tuple(out.shape)}")
     require(torch.isfinite(out).all().item(), f"{case}: non-finite")
@@ -363,8 +363,8 @@ def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name):
 
     tokens = sum(len(r.generated) for r in reqs)
     fed = sum(len(r.prompt) for r in reqs)
-    print(f"  {cfg.name} serve on {gpu_name}: {n_req} requests, {slots} slots, "
-          f"{engine.ticks} ticks, {seconds:.3f} s, {tokens} new tokens "
+    print(f"  {cfg.name} serve on {gpu_name}: {n_req} requests, {slots} "
+          f"slots, {engine.ticks} ticks, {seconds:.3f} s, {tokens} new tokens "
           f"({tokens / seconds:.1f} tokens/s; {fed} prompt tokens fed by "
           f"decode), {seconds / engine.ticks * 1e3:.3f} ms/tick, peak "
           f"memory {peak / 2**30:.3f} GiB, launches {counts}; request "
@@ -386,13 +386,22 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
 
     The main path runs in the config's bf16 with the launch counts reset
     just before it.  In f32 the kernel path is held against the
-    forced-plain path by phase 4's rule.  In bf16 the random-weight hybrid
-    stack drifts further than that rule under any change in the order of
-    rounding (the kernel and plain paths round attention's probabilities at
-    different places), so the bf16 paths are each held against the f32
-    plain path on the same weights unrounded (`init_params` draws in f32
-    and casts): the kernel path's mean abs error may be at most 1.25x the
-    plain path's, and its top-1 agreement at most 0.02 lower."""
+    forced-plain path at 2e-3 of the largest logit (the card has measured
+    1.6e-4) with top-1 agreement >= 0.99, and the kernel path with the
+    window one key short must fall outside that limit: the check sees a
+    band off by one key.  Phase 4's rule cannot hold in bf16: bf16 moves
+    random-weight hymba's logits by more than 2e-2 of the largest under any
+    change in the order of rounding, and the JAX package's bf16 model and
+    the port's differ by more already at 8 layers
+    (`tests/test_torch_drift.py`).  So each bf16 path is held against the
+    f32 plain path on the same weights unrounded (`init_params` draws in
+    f32 and casts): the kernel path's mean abs error may be at most 1.1x
+    the plain path's, and its top-1 agreement at most 0.02 lower (the card
+    has measured 0.998x and 0.004 higher; the JAX package's and the port's
+    bf16 drifts from f32 differ by at most 2% in mean and 0.01 in top-1).
+    That gate is for gross faults: the card has measured a window ignored
+    outside it (1.19x, 0.039 lower) and a window one key short inside it,
+    and both are printed beside."""
     b, s = 2, 2048
     gen = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
@@ -421,6 +430,9 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
     profile = profile_prefill(torch, prefill, params, tokens)
     with flags(force_plain=True):
         plain16 = prefill(params, {"tokens": tokens})
+    # faulty bands: one key short, and the window ignored (S keys)
+    short, full = (make_prefill_step(replace(cfg, window=w))(
+        params, {"tokens": tokens}) for w in (cfg.window - 1, s))
 
     cfg32 = replace(cfg, dtype="float32")
     params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
@@ -432,6 +444,8 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
     seconds32 = time.perf_counter() - t0
     with flags(force_plain=True):
         plain32 = prefill32(params32, {"tokens": tokens})
+    short32 = make_prefill_step(replace(cfg32, window=cfg.window - 1))(
+        params32, {"tokens": tokens})
     torch.cuda.synchronize()
     require(torch.isfinite(kernel32).all().item(),
             "hybrid f32 prefill logits not finite")
@@ -444,35 +458,49 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
         return diff.max().item(), diff.mean().item(), top1
 
     err, _, top1 = against(kernel32, plain32)
-    rel_tol = 2e-2
+    short_err, _, short_top1 = against(short32, plain32)
+    rel_tol = 2e-3
     print(f"  {cfg.name} f32 prefill B{b} S{s}: {seconds32:.3f} s; logits "
           f"max|kernel-plain| {err:.3e} of max|logit| {scale:.3f} (tol "
-          f"{rel_tol:g} x max|logit|), top-1 agreement {top1:.5f}")
+          f"{rel_tol:g} x max|logit|), top-1 agreement {top1:.5f}; window "
+          f"{cfg.window - 1} (one key short): {short_err:.3e}, top-1 "
+          f"{short_top1:.5f}")
     require(err <= rel_tol * scale,
             f"hybrid prefill: kernel vs plain logits differ by {err}")
     require(top1 >= 0.99, f"hybrid prefill: top-1 agreement {top1} < 0.99")
+    require(short_err > rel_tol * scale,
+            f"hybrid prefill: a window one key short moves the f32 logits "
+            f"by {short_err}, within the tolerance: the check cannot see it")
 
     drift = {"kernel": against(kernel16, plain32),
              "plain": against(plain16, plain32),
-             "kernel_vs_plain": against(kernel16, plain16)}
+             "kernel_vs_plain": against(kernel16, plain16),
+             "window_short": against(short, plain32),
+             "window_ignored": against(full, plain32)}
+    (_, p_mean, p_top1) = drift["plain"]
+
+    def gate(name):
+        _, mean, t1 = drift[name]
+        return mean <= 1.1 * p_mean and t1 >= p_top1 - 0.02
+
     for name, (mx, mean, t1) in drift.items():
         print(f"  bf16 {name.replace('_', ' ')}"
               f"{'' if name == 'kernel_vs_plain' else ' vs f32 plain'}: "
               f"max {mx:.4f}, mean {mean:.5f} of max|logit| {scale:.3f}, "
-              f"top-1 {t1:.5f}")
-    (_, k_mean, k_top1), (_, p_mean, p_top1) = drift["kernel"], \
-        drift["plain"]
-    require(k_mean <= 1.25 * p_mean,
-            f"hybrid bf16 prefill: kernel path mean error {k_mean} vs f32, "
-            f"plain path {p_mean}")
-    require(k_top1 >= p_top1 - 0.02,
-            f"hybrid bf16 prefill: kernel path top-1 {k_top1} vs f32, "
-            f"plain path {p_top1}")
+              f"top-1 {t1:.5f}" + (f"; within the bf16 gate: {gate(name)}"
+                                   if name.startswith("window") else ""))
+    (_, k_mean, k_top1) = drift["kernel"]
+    require(gate("kernel"), f"hybrid bf16 prefill: kernel path mean error "
+            f"{k_mean}, top-1 {k_top1} vs f32; plain path {p_mean}, "
+            f"{p_top1}")
     return {"B": b, "S": s, "seconds": seconds, "launches": counts,
             "profile": profile, "f32_seconds": seconds32,
             "max_abs_err": err, "max_abs_logit": scale, "top1": top1,
+            "window_short_f32": {"max": short_err, "top1": short_top1},
             "bf16_drift": {k: dict(zip(("max", "mean", "top1"), v))
-                           for k, v in drift.items()}}
+                           for k, v in drift.items()},
+            "bf16_gate": {k: gate(k) for k in drift
+                          if k not in ("plain", "kernel_vs_plain")}}
 
 
 def device_time(torch, prof, wall_us: float, top: int = 10):
@@ -530,12 +558,14 @@ def run_ring_wrap(torch, np, ops, cfg, ServeEngine, Request, forward,
     overwrite the ring's oldest; its logits at each of the last 8 positions
     against `forward` over the same tokens through the kernels (K1 with the
     window, K4).  Full width, depth cut to 2 layers so the 1100 ticks fit
-    the time limit, f32.  Tolerance 1e-3 of the largest logit: the same f32
+    the time limit, f32.  Tolerance 2e-5 of the largest logit: the same f32
     model, but decode takes a product per token and the plain recurrence
     where prefill takes one product over the sequence, K1 and K4, summed in
-    other orders; a ring that dropped or kept a wrong entry moves a logit by
-    more (phase 8's CPU counterpart, `tests/test_torch_hybrid.py`, holds
-    decode past the window to the reference at 1e-4)."""
+    other orders (the card has measured 3.3e-6).  A ring one entry short or
+    long must fall outside it: `forward` with a window of 1023 and of 1025
+    keys is held to the decoded logits too, and must differ by more (phase
+    8's CPU counterpart, `tests/test_torch_hybrid.py`, holds decode past
+    the window to the reference at 1e-4)."""
     cfg = replace(cfg, n_layers=2, dtype="float32")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_prompt, max_len, last = 1100, 1152, 8
@@ -571,17 +601,27 @@ def run_ring_wrap(torch, np, ops, cfg, ServeEngine, Request, forward,
     scale = expect.abs().max().item()
     err = (got - expect).abs().max().item()
     same_top1 = bool((got.argmax(-1) == expect.argmax(-1)).all().item())
-    rel_tol = 1e-3
+    off = {}  # a ring one entry short or long
+    for w in (cfg.window - 1, cfg.window + 1):
+        other, _ = forward(params, replace(cfg, window=w),
+                           torch.tensor([prompt], device="cuda"), chunk=100)
+        off[w] = (got - other[0, n_prompt - last:]).abs().max().item()
+    rel_tol = 2e-5
     print(f"  ring wrap ({cfg.n_layers} layers, f32, ring {ring}): "
           f"{n_prompt} ticks in {seconds:.3f} s; logits at positions "
           f"{n_prompt - last}..{n_prompt - 1} max|decode-forward| "
           f"{err:.3e} of max|logit| {scale:.3f} (tol {rel_tol:g} x "
-          f"max|logit|), same top-1: {same_top1}")
+          f"max|logit|), same top-1: {same_top1}; against forward with "
+          + ", ".join(f"window {w}: {e:.3e}" for w, e in off.items()))
     require(err <= rel_tol * scale,
             f"ring: decode vs forward logits differ by {err}")
     require(same_top1, "ring: decode and forward disagree on a top-1")
+    require(min(off.values()) > rel_tol * scale,
+            f"ring: a window one key off gives {off}, within the "
+            f"tolerance: the check cannot see it")
     return {"layers": cfg.n_layers, "ring": ring, "ticks": engine.ticks,
             "seconds": seconds, "max_abs_err": err, "max_abs_logit": scale,
+            "window_off_by_one_err": {str(w): e for w, e in off.items()},
             "forward_launches": counts}
 
 
@@ -696,13 +736,15 @@ def main(argv=None) -> int:
                check_flash_attention(torch, ops, F, dt, block_q=32,
                                      block_k=128),
                check_flash_attention(torch, ops, F, dt, s=1000)]
-    rms = [check_rmsnorm(torch, ops, F, dt, r)
-           for r in (8, 4096) for dt in ("bfloat16", "float32")]
+    # rows of a decode tick (8 slots) and of a prefill (4096 tokens) at
+    # qwen2-0.5b's width and at hymba-1.5b's
+    rms = [check_rmsnorm(torch, ops, F, dt, r, d)
+           for d in (896, 1600) for r in (8, 4096)
+           for dt in ("bfloat16", "float32")]
     # the main path's shape first: hymba prefill, a/bx/c in f32 as the
     # model makes them
     scan = [check_ssm_scan(torch, ops, "float32", timed=True),
             check_ssm_scan(torch, ops, "bfloat16", timed=True),
-            check_ssm_scan(torch, ops, "bfloat16", c_name="float32"),
             check_ssm_scan(torch, ops, "float32", s=1000)]
     scan += [check_ssm_scan(torch, ops, dt, s=s, din=din, n=n)
              for s, din, n in ((32, 128, 8), (64, 256, 16))
@@ -748,7 +790,7 @@ def main(argv=None) -> int:
     ring = run_ring_wrap(torch, np, ops, hcfg, ServeEngine, Request, forward,
                          init_params)
 
-    main_fa, main_rms = fa[0], rms[2]  # bf16 at the prefill shapes
+    main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
     main_runs = (prefill, serve, hprefill, hserve)
     kernels = [

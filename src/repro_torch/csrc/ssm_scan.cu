@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_scan.py::ssm_scan
 // (_ssm_kernel): h_t = a_t * h_{t-1} + bx_t, y_t = h_t . c_t, h_0 = 0, with
-// a/bx (B, S, din, N) in f32 or bf16 read as f32, c (B, S, N), and y
-// (B, S, din) f32.  The TPU kernel walks a grid (batch, n_chunks) in order
-// and carries the whole (din, N) state in VMEM scratch from one chunk to the
-// next.  Blocks on the H100 run in no order, so nothing is carried between
+// a/bx (B, S, din, N) and c (B, S, N) of one dtype, f32 or bf16, read as
+// f32, and y (B, S, din) f32.  The TPU kernel walks a grid (batch,
+// n_chunks) in order and carries the whole (din, N) state in VMEM scratch
+// from one chunk to the next.  Blocks on the H100 run in no order, so nothing is carried between
 // them: here one thread owns one (b, d, n) for the whole sequence and keeps
 // its h in a register, and the time loop runs inside the kernel.  The N
 // lanes of a channel are adjacent, so a (b, t) row of a/bx is one coalesced
@@ -26,10 +26,10 @@ namespace {
 constexpr int kThreads = 128;  // a block: kThreads / N channels x N lanes
 constexpr int kU = 8;          // time steps loaded ahead per thread
 
-template <typename TA, typename TC>
+template <typename T>
 __device__ __forceinline__ void load_steps(float (&ra)[kU], float (&rb)[kU],
-                                           float (&rc)[kU], const TA* ap,
-                                           const TA* bp, const TC* cp,
+                                           float (&rc)[kU], const T* ap,
+                                           const T* bp, const T* cp,
                                            int64_t t0, int64_t S,
                                            int64_t row, int N, bool live) {
 #pragma unroll
@@ -42,10 +42,10 @@ __device__ __forceinline__ void load_steps(float (&ra)[kU], float (&rb)[kU],
   }
 }
 
-template <typename TA, typename TC, int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
-    ssm_scan_kernel(const TA* __restrict__ a, const TA* __restrict__ bx,
-                    const TC* __restrict__ c, float* __restrict__ y,
+    ssm_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
+                    const T* __restrict__ c, float* __restrict__ y,
                     int64_t S, int64_t din) {
   constexpr int kChannels = kThreads / N;
   const int n = threadIdx.x % N;
@@ -56,9 +56,9 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = d < din;
   const int64_t row = din * N;  // elements of one (b, t) row of a / bx
   const int64_t off = b * S * row + (live ? d : 0) * N + n;
-  const TA* ap = a + off;
-  const TA* bp = bx + off;
-  const TC* cp = c + b * S * N + n;
+  const T* ap = a + off;
+  const T* bp = bx + off;
+  const T* cp = c + b * S * N + n;
   float* yp = y + b * S * din + d;
 
   float ra[kU], rb[kU], rc[kU];
@@ -85,65 +85,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TA, typename TC, int N>
+template <typename T, int N>
 int launch(const void* a, const void* bx, const void* c, void* y, int64_t B,
            int64_t S, int64_t din, cudaStream_t stream) {
   constexpr int kChannels = kThreads / N;
   const dim3 grid(static_cast<unsigned>((din + kChannels - 1) / kChannels),
                   static_cast<unsigned>(B));
-  ssm_scan_kernel<TA, TC, N><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TA*>(a), static_cast<const TA*>(bx),
-      static_cast<const TC*>(c), static_cast<float*>(y), S, din);
+  ssm_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(bx),
+      static_cast<const T*>(c), static_cast<float*>(y), S, din);
   return cudaGetLastError();
 }
 
-template <typename TA, typename TC>
+template <typename T>
 int dispatch_n(int64_t N, const void* a, const void* bx, const void* c,
                void* y, int64_t B, int64_t S, int64_t din,
                cudaStream_t stream) {
   switch (N) {
     case 1:
-      return launch<TA, TC, 1>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 1>(a, bx, c, y, B, S, din, stream);
     case 2:
-      return launch<TA, TC, 2>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 2>(a, bx, c, y, B, S, din, stream);
     case 4:
-      return launch<TA, TC, 4>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 4>(a, bx, c, y, B, S, din, stream);
     case 8:
-      return launch<TA, TC, 8>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 8>(a, bx, c, y, B, S, din, stream);
     case 16:
-      return launch<TA, TC, 16>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 16>(a, bx, c, y, B, S, din, stream);
     case 32:
-      return launch<TA, TC, 32>(a, bx, c, y, B, S, din, stream);
+      return launch<T, 32>(a, bx, c, y, B, S, din, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TA>
-int dispatch_c(int c_dtype, int64_t N, const void* a, const void* bx,
-               const void* c, void* y, int64_t B, int64_t S, int64_t din,
-               cudaStream_t stream) {
-  if (c_dtype == repro::kFloat32)
-    return dispatch_n<TA, float>(N, a, bx, c, y, B, S, din, stream);
-  if (c_dtype == repro::kBFloat16)
-    return dispatch_n<TA, __nv_bfloat16>(N, a, bx, c, y, B, S, din, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// a, bx (B, S, din, N) of one dtype; c (B, S, N) of its own dtype; y
-// (B, S, din) float32; all contiguous; N divides 32 (the wrapper checks).
-extern "C" int repro_ssm_scan_fwd(int dtype, int c_dtype, const void* a,
-                                  const void* bx, const void* c, void* y,
-                                  int64_t B, int64_t S, int64_t din,
-                                  int64_t N, void* stream) {
+// a, bx (B, S, din, N) and c (B, S, N) of one dtype; y (B, S, din) float32;
+// all contiguous; N divides 32 (the wrapper checks).
+extern "C" int repro_ssm_scan_fwd(int dtype, const void* a, const void* bx,
+                                  const void* c, void* y, int64_t B,
+                                  int64_t S, int64_t din, int64_t N,
+                                  void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || din <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return dispatch_c<float>(c_dtype, N, a, bx, c, y, B, S, din, s);
+    return dispatch_n<float>(N, a, bx, c, y, B, S, din, s);
   if (dtype == repro::kBFloat16)
-    return dispatch_c<__nv_bfloat16>(c_dtype, N, a, bx, c, y, B, S, din, s);
+    return dispatch_n<__nv_bfloat16>(N, a, bx, c, y, B, S, din, s);
   return cudaErrorInvalidValue;
 }

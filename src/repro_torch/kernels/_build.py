@@ -36,9 +36,9 @@ SIGNATURES = {
     # dtype, x, scale, out, R, D, eps, grid, stream
     "repro_rmsnorm_pipelined_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32,
                                     _I64, _P],
-    # dtype (a, bx), c_dtype, a, bx, c, y, B, S, din, N, stream
-    "repro_ssm_scan_fwd": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64,
-                           _I64, _P],
+    # dtype (a, bx, c), a, bx, c, y, B, S, din, N, stream
+    "repro_ssm_scan_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                           _P],
 }
 # the `dtype` argument of every entry point: repro::kFloat32 and
 # repro::kBFloat16 in csrc/common.cuh

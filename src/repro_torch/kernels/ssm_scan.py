@@ -45,9 +45,9 @@ def _check_cuda(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
                              f"takes float32 or bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"ssm_scan: {name} must be contiguous")
-    if bx.dtype != a.dtype:
-        raise ValueError(f"ssm_scan: a {a.dtype} and bx {bx.dtype} must "
-                         f"share a dtype")
+    if bx.dtype != a.dtype or c.dtype != a.dtype:
+        raise ValueError(f"ssm_scan: a {a.dtype}, bx {bx.dtype} and c "
+                         f"{c.dtype} must share a dtype")
     if a.dim() != 4 or bx.shape != a.shape or \
             c.shape != (a.shape[0], a.shape[1], a.shape[3]):
         raise ValueError(f"ssm_scan: shapes a {tuple(a.shape)}, bx "
@@ -77,8 +77,8 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
     b, s, din, n = a.shape
     y = torch.empty((b, s, din), dtype=torch.float32, device=a.device)
     err = lib.repro_ssm_scan_fwd(
-        _build.DTYPE_CODE[a.dtype], _build.DTYPE_CODE[c.dtype], a.data_ptr(),
-        bx.data_ptr(), c.data_ptr(), y.data_ptr(), b, s, din, n,
+        _build.DTYPE_CODE[a.dtype], a.data_ptr(), bx.data_ptr(),
+        c.data_ptr(), y.data_ptr(), b, s, din, n,
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "ssm_scan")
     ssm_scan.launches += 1

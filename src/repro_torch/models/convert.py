@@ -7,17 +7,13 @@ extension dtype (ml_dtypes) and is reinterpreted bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from .ssm import F32_LEAVES
-from .transformer import torch_dtype
 
 
-def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
+def _tensor(a: np.ndarray, device):
     # a writable copy: the port updates caches in place, and arrays handed
     # over from JAX are read-only views of its buffers
     a = np.array(a, order="C", copy=True)
@@ -25,30 +21,29 @@ def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    return t.to(device=device)
 
 
-def _tree(tree, device, dtype: Optional[torch.dtype], name: str = ""):
+def _tree(tree, device):
     if isinstance(tree, dict):
-        return {k: _tree(v, device, dtype, k) for k, v in tree.items()}
+        return {k: _tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree(v, device, dtype, name) for v in tree]
-    if dtype is not None and name in F32_LEAVES:
-        dtype = torch.float32
-    return _tensor(np.asarray(tree), device, dtype)
+        return [_tree(v, device) for v in tree]
+    return _tensor(np.asarray(tree), device)
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's param tree (numpy leaves) as the port's params, each
-    leaf in the dtype the reference gives it: the config's dtype, but f32
-    for the SSM leaves the reference keeps in f32 (`ssm.F32_LEAVES`)."""
+    leaf in the dtype the reference gives it: the config's dtype for most,
+    f32 for those the reference keeps in f32 whatever the config says (the
+    SSM's `w_dt`, `a_log` and `d_skip`)."""
     table = tree["embed"]["table"]
     if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embedding {tuple(table.shape)} does not match "
                          f"{cfg.name}: ({cfg.vocab_size}, {cfg.d_model})")
-    return _tree(tree, device, torch_dtype(cfg))
+    return _tree(tree, device)
 
 
 def decode_state_from_numpy(tree, device="cuda"):
     """The reference's decode state (numpy leaves) as the port's."""
-    return _tree(tree, device, None)
+    return _tree(tree, device)

@@ -24,11 +24,6 @@ from .layers import linear
 
 Params = Dict[str, torch.Tensor]
 
-# leaves the reference keeps in float32 whatever the config's dtype
-# (`repro/models/ssm.py::init_ssm`)
-F32_LEAVES = ("w_dt", "a_log", "d_skip")
-
-
 def init_ssm(cfg: ArchConfig, reps: int, normal, dtype: torch.dtype,
              device) -> Params:
     """Layer-stacked params (leading `reps` axis) with the reference's
@@ -68,15 +63,14 @@ def _readout(p: Params, y: torch.Tensor, xin: torch.Tensor, z: torch.Tensor,
     return linear(y, p["w_out"])
 
 
-def ssm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                chunk: int = 128) -> torch.Tensor:
+def ssm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D)."""
     din = cfg.ssm_expand * x.shape[-1]
     xz = linear(x, p["w_in"])
     xin, z = xz[..., :din], xz[..., din:]
     a, bx, csel = _discretize(p, xin)
     if x.device.type == "cuda" and not get_flags().force_plain:
-        y = ssm_scan(a, bx, csel, chunk=chunk)
+        y = ssm_scan(a, bx, csel)
     else:
         y = ssm_scan_plain(a, bx, csel)
     return _readout(p, y, xin, z, x.dtype)

@@ -71,11 +71,12 @@ def test_flash_attention(s, h, kv, hd, window, block_q, block_k, dtype):
            TOL[dtype])
 
 
+@pytest.mark.parametrize("d", [896, 1600])  # qwen2-0.5b, hymba-1.5b
 @pytest.mark.parametrize("r", [8, 13, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm(r, dtype):
+def test_rmsnorm(r, d, dtype):
     dev = _cuda()
-    x, scale = _inputs(6, [(r, 896), (896,)], dtype, dev)
+    x, scale = _inputs(6, [(r, d), (d,)], dtype, dev)
     scale = 1.0 + 0.1 * scale
     before = ops.rmsnorm_pipelined.launches
     out = ops.rmsnorm_pipelined(x, scale)
@@ -116,29 +117,28 @@ def test_prefill_kernel_path_matches_plain_path():
     assert (logits - plain).abs().max() <= 2e-2 * plain.abs().max()
 
 
-def _scan_inputs(b, s, din, n, dtype, device, c_dtype=None):
+def _scan_inputs(b, s, din, n, dtype, device):
     gen = torch.Generator(device=device).manual_seed(7)
     a = torch.sigmoid(torch.randn((b, s, din, n), generator=gen,
                                   device=device) + 1.0)
     bx = torch.randn((b, s, din, n), generator=gen, device=device)
     c = torch.randn((b, s, n), generator=gen, device=device)
     dt = getattr(torch, dtype)
-    return a.to(dt), bx.to(dt), c.to(getattr(torch, c_dtype or dtype))
+    return a.to(dt), bx.to(dt), c.to(dt)
 
 
-@pytest.mark.parametrize("s,din,n,c_dtype", [
-    (32, 128, 8, None),       # the reference grid
-    (64, 256, 16, None),
-    (1000, 320, 16, None),    # ragged S, no multiple of the 8-step prefetch
-    (64, 100, 8, None),       # din no multiple of a block's channels
-    (64, 256, 16, "float32"),  # bf16 a/bx with an f32 readout (the model's)
-    (40, 64, 32, None),
-    (40, 64, 1, None),
+@pytest.mark.parametrize("s,din,n", [
+    (32, 128, 8),       # the reference grid
+    (64, 256, 16),
+    (1000, 320, 16),    # ragged S, no multiple of the 8-step prefetch
+    (64, 100, 8),       # din no multiple of a block's channels
+    (40, 64, 32),
+    (40, 64, 1),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssm_scan(s, din, n, c_dtype, dtype):
+def test_ssm_scan(s, din, n, dtype):
     dev = _cuda()
-    a, bx, c = _scan_inputs(2, s, din, n, dtype, dev, c_dtype)
+    a, bx, c = _scan_inputs(2, s, din, n, dtype, dev)
     before = ops.ssm_scan.launches
     out = ops.ssm_scan(a, bx, c, chunk=16)
     assert ops.ssm_scan.launches == before + 1
@@ -162,6 +162,8 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take():
         ops.ssm_scan(a, bx, c.cpu())
     with pytest.raises(ValueError):  # a and bx of two dtypes
         ops.ssm_scan(a, bx.bfloat16(), c)
+    with pytest.raises(ValueError):  # c of another dtype than a/bx
+        ops.ssm_scan(a.bfloat16(), bx.bfloat16(), c)
     with pytest.raises(ValueError):  # float16 is not instantiated
         ops.ssm_scan(a.half(), bx.half(), c.half())
     assert ops.ssm_scan.launches == before
