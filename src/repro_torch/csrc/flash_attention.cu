@@ -131,7 +131,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t S, int64_t H, int64_t Kv, int64_t block_q,
-           int64_t block_k, int64_t causal, int64_t window,
+           int64_t block_k, int64_t causal, int64_t window, float scale,
            cudaStream_t stream) {
   const size_t smem = 2 * block_k * HD * sizeof(float);
   // Raise the shared-memory limit once per instantiation (not on every
@@ -150,8 +150,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
                                   smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, Kv,
-      static_cast<int>(block_k), static_cast<int>(causal), window,
-      1.0f / sqrtf(static_cast<float>(HD)));
+      static_cast<int>(block_k), static_cast<int>(causal), window, scale);
   return cudaGetLastError();
 }
 
@@ -159,20 +158,20 @@ template <typename T>
 int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
                 void* o, int64_t B, int64_t S, int64_t H, int64_t Kv,
                 int64_t block_q, int64_t block_k, int64_t causal,
-                int64_t window, cudaStream_t stream) {
+                int64_t window, float scale, cudaStream_t stream) {
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, stream);
+                           window, scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, stream);
+                           window, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, stream);
+                           window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, H, Kv, block_q, block_k,
-                            causal, window, stream);
+                            causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -181,23 +180,25 @@ int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, S, H, hd), k/v (B, S, Kv, hd), out (B, S, H, hd), one dtype,
-// contiguous.  window <= 0 means no sliding window.
+// contiguous.  window <= 0 means no sliding window.  `scale` multiplies the
+// scores: 1/sqrt(head_dim) of the model, which is not the template's HD
+// when the wrapper zero-pads the head dim (hd 120 runs as HD 128).
 extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                          const void* k, const void* v,
                                          void* o, int64_t B, int64_t S,
                                          int64_t H, int64_t Kv, int64_t hd,
                                          int64_t block_q, int64_t block_k,
                                          int64_t causal, int64_t window,
-                                         void* stream) {
+                                         float scale, void* stream) {
   if (B <= 0 || S <= 0 || Kv <= 0 || H % Kv != 0 || block_q <= 0 ||
       block_q > 1024 || block_k <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
     return dispatch_hd<float>(hd, q, k, v, o, B, S, H, Kv, block_q, block_k,
-                              causal, window, s);
+                              causal, window, scale, s);
   if (dtype == repro::kBFloat16)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, Kv, block_q,
-                                      block_k, causal, window, s);
+                                      block_k, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,8 @@
-// Pipelined RMSNorm for Hopper (sm_90a).
+// RMSNorm for Hopper (sm_90a): the baseline and the pipelined kernel of the
+// paper's case study (section VI-D(b)), side by side so that one
+// `nvcc -ptx` shows both (`core/ptx_frontend.py` reads them).
+//
+// Pipelined RMSNorm.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py::
 // rmsnorm_pipelined (_rmsnorm_pipelined_kernel): out = x * rsqrt(mean(x^2)
@@ -114,7 +118,94 @@ int launch(const void* x, const void* scale, void* out, int64_t R,
   return cudaGetLastError();
 }
 
+// Baseline RMSNorm.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py::
+// rmsnorm_baseline (_rmsnorm_kernel): the same function, one row block of
+// 8 rows per grid step through the implicit BlockSpec pipeline, so each
+// step's compute waits on its own block's arrival.  Here one block per 8-row
+// block, one warp per row, and the row is loaded straight from device memory
+// into registers (PER_LANE values a lane, the lane-strided, coalesced
+// pattern of the pipelined kernel's reduction): no cp.async and no
+// shared-memory ring -- the synchronous-load pattern the case study
+// contrasts with the kernel above.  The f32 sum of squares is taken in the
+// same order as there (lane-strided, then __shfl_xor_sync).
+//
+// Bound on the H100: bytes, (2*R*D + D)*itemsize over 3.35 TB/s (0.0044 ms
+// at R 4096, D 896, bf16).  Each input byte is read once and each output
+// byte written once; the design does nothing to overlap one row block's
+// loads with another's math beyond what other resident blocks give.
+template <typename T, int PER_LANE>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_baseline_kernel(const T* __restrict__ x,
+                            const T* __restrict__ scale, T* __restrict__ out,
+                            int64_t R, int64_t D, float eps) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+  if (row >= R) return;  // the whole warp: no block-wide barrier follows
+  const T* xr = x + row * D;
+  float v[PER_LANE];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int64_t j = lane + 32 * static_cast<int64_t>(i);
+    v[i] = j < D ? repro::to_f32(xr[j]) : 0.f;
+    ss += v[i] * v[i];
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float inv = rsqrtf(ss / static_cast<float>(D) + eps);
+  T* orow = out + row * D;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int64_t j = lane + 32 * static_cast<int64_t>(i);
+    if (j < D)
+      orow[j] = repro::from_f32<T>(v[i] * inv * repro::to_f32(scale[j]));
+  }
+}
+
+template <typename T, int PER_LANE>
+int launch_baseline(const void* x, const void* scale, void* out, int64_t R,
+                    int64_t D, float eps, cudaStream_t stream) {
+  const int64_t blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
+  rmsnorm_baseline_kernel<T, PER_LANE>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(scale),
+          static_cast<T*>(out), R, D, eps);
+  return cudaGetLastError();
+}
+
+// The row lives in PER_LANE registers a lane: D <= 32 * PER_LANE.
+template <typename T>
+int dispatch_baseline(const void* x, const void* scale, void* out, int64_t R,
+                      int64_t D, float eps, cudaStream_t stream) {
+  if (D <= 32 * 16)
+    return launch_baseline<T, 16>(x, scale, out, R, D, eps, stream);
+  if (D <= 32 * 32)
+    return launch_baseline<T, 32>(x, scale, out, R, D, eps, stream);
+  if (D <= 32 * 64)
+    return launch_baseline<T, 64>(x, scale, out, R, D, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// x (R, D), scale (D,), out (R, D), all of one dtype, contiguous, with
+// D <= 2048 (the wrapper checks).
+extern "C" int repro_rmsnorm_baseline_fwd(int dtype, const void* x,
+                                          const void* scale, void* out,
+                                          int64_t R, int64_t D, float eps,
+                                          void* stream) {
+  if (R <= 0 || D <= 0 || R > 8 * static_cast<int64_t>(0x7fffffff))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return dispatch_baseline<float>(x, scale, out, R, D, eps, s);
+  if (dtype == repro::kBFloat16)
+    return dispatch_baseline<__nv_bfloat16>(x, scale, out, R, D, eps, s);
+  return cudaErrorInvalidValue;
+}
 
 // x (R, D), scale (D,), out (R, D), all of one dtype, contiguous, 16-byte
 // aligned, with D * itemsize a multiple of 16 (the wrapper checks).

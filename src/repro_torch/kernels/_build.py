@@ -6,6 +6,9 @@ plain C interface, loaded with `ctypes`.  The library lives under
 `build/repro_torch/` at the repository root and its name carries a hash of
 the sources and flags, so a stale build is never loaded.  Nothing is built
 when this module is imported: `library()` builds at first use.
+
+`ptx(source)` compiles one source to PTX with line information (for
+`core/ptx_frontend.py`), cached the same way.
 """
 from __future__ import annotations
 
@@ -19,20 +22,27 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# PTX for the kernel-body front-end: the same target and optimisation, with
+# `.loc` line information
+PTX_FLAGS = ("-arch=sm_90a", "-std=c++17", "-O3", "-lineinfo", "-ptx")
 
 _P, _I64, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_int)
 # C entry points: (name, argtypes).  Each returns cudaGetLastError() as int.
 SIGNATURES = {
     # dtype, q, k, v, out, B, S, H, Kv, hd, block_q, block_k, causal,
-    # window (0 = none), stream
+    # window (0 = none), scale, stream
     "repro_flash_attention_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64,
-                                  _I64, _I64, _I64, _I64, _I64, _I64, _P],
+                                  _I64, _I64, _I64, _I64, _I64, _I64, _F32,
+                                  _P],
+    # dtype, x, scale, out, R, D, eps, stream
+    "repro_rmsnorm_baseline_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32, _P],
     # dtype, x, scale, out, R, D, eps, grid, stream
     "repro_rmsnorm_pipelined_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32,
                                     _I64, _P],
@@ -68,11 +78,15 @@ def sources() -> list:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_{_sources_hash(NVCC_FLAGS)}.so"
+
+
+def _sources_hash(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
 def build() -> Path:
@@ -110,6 +124,37 @@ def build() -> Path:
         os.replace(tmp_lib, out)
     (BUILD_DIR / "build.log").write_text("\n".join(log))
     return out
+
+
+def ptx(source: str) -> Path:
+    """PTX of `csrc/<source>` for sm_90a with `.loc` line information
+    (`nvcc -ptx -lineinfo`), written under `build/repro_torch/` keyed by a
+    hash of the sources and flags; raises `BuildError` without nvcc."""
+    src = CSRC / source
+    if not src.is_file():
+        raise FileNotFoundError(f"no CUDA source {src}")
+    out = BUILD_DIR / f"{src.stem}_{_sources_hash(PTX_FLAGS)}.ptx"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_out = Path(tmp) / out.name
+        cmd = [nvcc, *PTX_FLAGS, str(src), "-o", str(tmp_out)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise BuildError(f"nvcc -ptx failed ({res.returncode}):\n"
+                             f"{' '.join(cmd)}\n{res.stdout}")
+        os.replace(tmp_out, out)
+    return out
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """True for a tensor of a capture (`core/torch_frontend.capture` runs
+    the program on fake tensors): a wrapper then calls its registered op,
+    which the capture records as one node, instead of launching."""
+    return isinstance(t, FakeTensor)
 
 
 @functools.lru_cache(maxsize=None)

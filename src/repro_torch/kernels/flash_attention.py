@@ -14,7 +14,13 @@ CUDA cores in f32 and sits far above that bound; its times are in PERF.md.
 
 `flash_attention` takes a CPU tensor to `flash_attention_plain` and a CUDA
 tensor to the kernel; on anything else, or on a CUDA input the kernel does
-not take, it raises.  It never falls back.
+not take, it raises.  It never falls back.  The kernel is built for head
+dims 16, 32, 64 and 128; h2o-danube-3-4b's 120 runs as 128: the wrapper
+zero-pads q, k and v (zero columns change no score, and the padded output
+columns are dropped) and passes the scale 1/sqrt(120).  The fake CUDA
+tensors of a capture (`core/torch_frontend.capture`) go to the registered
+op `torch.ops.repro_torch.flash_attention`, one node in the captured
+program; the run path calls the kernel directly.
 """
 from __future__ import annotations
 
@@ -22,10 +28,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
+# head dims the kernel runs zero-padded to an instantiated one
+PADDED_HEAD_DIMS = {120: 128}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,8 +81,9 @@ def _check_cuda(q, k, v, block_q: int, block_k: int,
     if h % k.shape[2] != 0:
         raise ValueError(f"flash_attention: {h} q-heads not a multiple of "
                          f"{k.shape[2]} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if hd not in HEAD_DIMS and hd not in PADDED_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"{HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
     if not 1 <= block_q <= 1024 or block_k < 1 or \
             2 * block_k * hd * 4 > _build.MAX_SMEM:
         raise ValueError(f"flash_attention: block_q {block_q}, block_k "
@@ -84,26 +94,63 @@ def _check_cuda(q, k, v, block_q: int, block_k: int,
         raise ValueError("flash_attention: B and H must be <= 65535")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """q (B,S,H,hd); k/v (B,S,Kv,hd) with H % Kv == 0. Returns (B,S,H,hd).
-
-    Forward only: nothing in the port trains through it yet."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int], block_q: int,
+            block_k: int) -> torch.Tensor:
     lib = _build.library()
     _check_cuda(q, k, v, block_q, block_k, window)
     b, s, h, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    hd_run = PADDED_HEAD_DIMS.get(hd, hd)
+    if hd_run != hd:
+        q, k, v = (F.pad(t, (0, hd_run - hd)) for t in (q, k, v))
     out = torch.empty_like(q)
     err = lib.repro_flash_attention_fwd(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, s, h, k.shape[2], hd, block_q,
-        block_k, int(causal), window or 0,
+        v.data_ptr(), out.data_ptr(), b, s, h, k.shape[2], hd_run, block_q,
+        block_k, int(causal), window or 0, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if hd_run == hd else out[..., :hd].contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 64, block_k: int = 64,
+                    chunk: int = 512) -> torch.Tensor:
+    """q (B,S,H,hd); k/v (B,S,Kv,hd) with H % Kv == 0. Returns (B,S,H,hd).
+
+    `chunk` is the block of the plain path (`models/attention.py::
+    chunked_attention`) that a capture expands the kernel's region into,
+    so the captured program's FLOPs equal the plain program's; the kernel
+    does not read it.  Forward only: nothing in the port trains through it
+    yet."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if _build.is_fake(q):
+        _check_cuda(q, k, v, block_q, block_k, window)
+        return torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, block_q, block_k, chunk)
+    return _launch(q, k, v, causal, window, block_q, block_k)
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int], block_q: int,
+                        block_k: int, chunk: int) -> torch.Tensor:
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(q, k, v, causal, window, block_q, block_k, chunk):
+    return _launch(q, k, v, causal, window, block_q, block_k)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, block_q, block_k, chunk):
+    return torch.empty_like(q)

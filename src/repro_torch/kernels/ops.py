@@ -1,6 +1,13 @@
 """Public entry points of the port's kernels (the counterpart of
-`repro.kernels.ops`): `rmsnorm_op` is the pipelined variant, as there, and
-`ssm_scan_op` the selective scan.
+`repro.kernels.ops`): `rmsnorm_op` is the pipelined variant, as there,
+`rmsnorm_baseline_op` the baseline of the case study, and `ssm_scan_op`
+the selective scan.
+
+Each kernel is also a registered op, `torch.ops.repro_torch.<name>`, whose
+CPU implementation is the plain version and whose CUDA implementation is
+the kernel: a capture of the port's program (`core/torch_frontend.capture`)
+sees each kernel call as one node.  The wrappers call the kernels directly
+on the run path.
 
 `launch_counts()` / `reset_launch_counts()` read and zero the wrappers'
 launch counters, so a run can show that its path went through the kernels.
@@ -10,14 +17,16 @@ from __future__ import annotations
 from typing import Dict
 
 from .flash_attention import flash_attention, flash_attention_plain
-from .rmsnorm import rmsnorm_pipelined, rmsnorm_plain
+from .rmsnorm import rmsnorm_baseline, rmsnorm_pipelined, rmsnorm_plain
 from .ssm_scan import ssm_scan, ssm_scan_plain
 
 rmsnorm_op = rmsnorm_pipelined
+rmsnorm_baseline_op = rmsnorm_baseline
 ssm_scan_op = ssm_scan
 
 KERNELS = {"flash_attention": flash_attention,
            "rmsnorm_pipelined": rmsnorm_pipelined,
+           "rmsnorm_baseline": rmsnorm_baseline,
            "ssm_scan": ssm_scan}
 
 
@@ -32,6 +41,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS", "flash_attention", "flash_attention_plain", "launch_counts",
-    "reset_launch_counts", "rmsnorm_op", "rmsnorm_pipelined", "rmsnorm_plain",
-    "ssm_scan", "ssm_scan_op", "ssm_scan_plain",
+    "reset_launch_counts", "rmsnorm_baseline", "rmsnorm_baseline_op",
+    "rmsnorm_op", "rmsnorm_pipelined", "rmsnorm_plain", "ssm_scan",
+    "ssm_scan_op", "ssm_scan_plain",
 ]

@@ -1,19 +1,29 @@
-"""Pipelined RMSNorm: the hand-written Hopper kernel and its plain version.
+"""RMSNorm, two hand-written Hopper kernels and their plain version.
 
-Replaces the Pallas TPU kernel `repro/kernels/rmsnorm.py::rmsnorm_pipelined`
-(body `_rmsnorm_pipelined_kernel`), the double-buffered variant with one
-completion counter per buffer that is the paper's split-wait-counter case
-study.  The CUDA source is `csrc/rmsnorm.cu`: a block walks several row
-blocks of 8 rows through a 2-stage ring of `cp.async` groups in shared
-memory, so row block i+1 is in flight while row block i is reduced (f32,
-warp shuffles, one warp per row).
+The CUDA source is `csrc/rmsnorm.cu`; both kernels compute
+`x * rsqrt(mean(x^2) + eps) * scale` in f32, cast to x's dtype, and are the
+two halves of the paper's baseline-vs-pipelined case study (section VI-D(b)):
 
-Bound on the H100: bytes, `2*R*D*itemsize + D*itemsize` over 3.35 TB/s.
-The kernel reads each input byte once and writes each output byte once.
+* `rmsnorm_pipelined` replaces the Pallas TPU kernel `repro/kernels/
+  rmsnorm.py::rmsnorm_pipelined` (body `_rmsnorm_pipelined_kernel`), the
+  double-buffered variant with one completion counter per buffer: a block
+  walks several row blocks of 8 rows through a 2-stage ring of `cp.async`
+  groups in shared memory, so row block i+1 is in flight while row block i
+  is reduced (f32, warp shuffles, one warp per row).
+* `rmsnorm_baseline` replaces `repro/kernels/rmsnorm.py::rmsnorm_baseline`
+  (body `_rmsnorm_kernel`): one block per 8-row block, one warp per row,
+  each row loaded straight from device memory into registers, no `cp.async`
+  and no ring.
 
-`rmsnorm_pipelined` takes a CPU tensor to `rmsnorm_plain` and a CUDA tensor
-to the kernel; on anything else, or on a CUDA input the kernel does not
-take, it raises.  It never falls back.
+Bound on the H100 for both: bytes, `(2*R*D + D)*itemsize` over 3.35 TB/s.
+Each kernel reads each input byte once and writes each output byte once.
+
+Each wrapper takes a CPU tensor to `rmsnorm_plain` and a CUDA tensor to its
+kernel; on anything else, or on a CUDA input the kernel does not take, it
+raises.  It never falls back.  The fake CUDA tensors of a capture
+(`core/torch_frontend.capture`) go to the registered op
+`torch.ops.repro_torch.<name>`, one node in the captured program; the run
+path calls the kernel directly (`PERF.md` gives the eager cost of each).
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 from . import _build
 
 ROWS_PER_BLOCK = 8  # kRowsPerBlock in csrc/rmsnorm.cu
+BASELINE_MAX_D = 32 * 64  # the baseline keeps a row in 64 registers a lane
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
@@ -40,36 +51,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_cuda(x: torch.Tensor, scale: torch.Tensor) -> None:
+def _check_cuda(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.device.type != "cuda" or scale.device != x.device:
-        raise ValueError(f"rmsnorm_pipelined: x on {x.device}, scale on "
+        raise ValueError(f"{name}: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")
     if x.dtype not in _build.DTYPE_CODE or scale.dtype != x.dtype:
-        raise ValueError(f"rmsnorm_pipelined: x {x.dtype}, scale "
-                         f"{scale.dtype}; the kernel takes float32 or "
-                         f"bfloat16, one dtype")
+        raise ValueError(f"{name}: x {x.dtype}, scale {scale.dtype}; the "
+                         f"kernel takes float32 or bfloat16, one dtype")
     if x.dim() != 2 or scale.shape != (x.shape[1],) or x.shape[0] < 1:
-        raise ValueError(f"rmsnorm_pipelined: x {tuple(x.shape)} must be "
-                         f"(R, D) and scale {tuple(scale.shape)} (D,)")
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be (R, D) and "
+                         f"scale {tuple(scale.shape)} (D,)")
     if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm_pipelined: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check_pipelined(x: torch.Tensor, scale: torch.Tensor) -> None:
+    _check_cuda("rmsnorm_pipelined", x, scale)
     row_bytes = x.shape[1] * x.element_size()
-    if row_bytes % 16 or x.data_ptr() % 16:
-        raise ValueError(f"rmsnorm_pipelined: rows of {row_bytes} bytes at "
-                         f"{x.data_ptr():#x}; cp.async needs 16-byte "
-                         f"multiples and alignment")
+    if row_bytes % 16 or (not _build.is_fake(x) and x.data_ptr() % 16):
+        raise ValueError(f"rmsnorm_pipelined: rows of {row_bytes} bytes; "
+                         f"cp.async needs 16-byte multiples and alignment")
     if 2 * ROWS_PER_BLOCK * row_bytes > _build.MAX_SMEM:
         raise ValueError(f"rmsnorm_pipelined: D={x.shape[1]} too wide for "
                          f"the shared-memory ring")
 
 
-def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """x (R, D); scale (D,).  Returns (R, D) in x's dtype."""
-    if x.device.type == "cpu" and scale.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps=eps)
+def _check_baseline(x: torch.Tensor, scale: torch.Tensor) -> None:
+    _check_cuda("rmsnorm_baseline", x, scale)
+    if x.shape[1] > BASELINE_MAX_D:
+        raise ValueError(f"rmsnorm_baseline: D={x.shape[1]} above "
+                         f"{BASELINE_MAX_D}, the row a warp keeps in "
+                         f"registers")
+
+
+def _launch_pipelined(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float) -> torch.Tensor:
     lib = _build.library()
-    _check_cuda(x, scale)
+    _check_pipelined(x, scale)
     r, d = x.shape
     n_blocks = -(-r // ROWS_PER_BLOCK)
     # one block per SM, each walking several row blocks: what it walks is
@@ -85,4 +103,64 @@ def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
     return out
 
 
+def _launch_baseline(x: torch.Tensor, scale: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    lib = _build.library()
+    _check_baseline(x, scale)
+    r, d = x.shape
+    out = torch.empty_like(x)
+    err = lib.repro_rmsnorm_baseline_fwd(
+        _build.DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), r, d, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rmsnorm_baseline")
+    rmsnorm_baseline.launches += 1
+    return out
+
+
+def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """x (R, D); scale (D,).  Returns (R, D) in x's dtype."""
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps=eps)
+    if _build.is_fake(x):
+        _check_pipelined(x, scale)
+        return torch.ops.repro_torch.rmsnorm_pipelined(x, scale, eps)
+    return _launch_pipelined(x, scale, eps)
+
+
+def rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """x (R, D) with D <= 2048; scale (D,).  Returns (R, D) in x's
+    dtype."""
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps=eps)
+    if _build.is_fake(x):
+        _check_baseline(x, scale)
+        return torch.ops.repro_torch.rmsnorm_baseline(x, scale, eps)
+    return _launch_baseline(x, scale, eps)
+
+
 rmsnorm_pipelined.launches = 0
+rmsnorm_baseline.launches = 0
+
+
+# -- registered ops: CPU the plain version, CUDA the kernel -----------------
+
+def _register(name: str, launch) -> None:
+    @torch.library.custom_op(f"repro_torch::{name}", mutates_args=(),
+                             device_types="cpu")
+    def op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+        return rmsnorm_plain(x, scale, eps=eps)
+
+    @op.register_kernel("cuda")
+    def _(x, scale, eps):
+        return launch(x, scale, eps)
+
+    @op.register_fake
+    def _(x, scale, eps):
+        return torch.empty_like(x)
+
+
+_register("rmsnorm_pipelined", _launch_pipelined)
+_register("rmsnorm_baseline", _launch_baseline)

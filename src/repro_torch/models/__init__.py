@@ -8,10 +8,11 @@ from .transformer import (
     init_params,
     layer_descriptors,
     layer_groups,
+    loss_fn,
 )
 
 __all__ = [
     "decode_state_from_numpy", "decode_step", "forward",
     "init_decode_state", "init_params", "layer_descriptors", "layer_groups",
-    "params_from_numpy",
+    "loss_fn", "params_from_numpy",
 ]

@@ -2,7 +2,8 @@
 `repro.models.attention`).
 
 Prefill runs the flash-attention kernel on CUDA tensors; `chunked_attention`
-is the plain path (CPU tensors, or `flags(force_plain=True)`).  Decode is
+is the plain path (CPU tensors, `flags(attention_impl="plain")` or
+`flags(force_plain=True)`).  Decode is
 plain PyTorch, as the reference's `decode_attention` is plain jnp, against a
 layer-stacked KV cache (L, B, S, Kv, hd) with one position per batch slot;
 under sliding-window attention the cache is a ring of `min(max_len,
@@ -116,8 +117,11 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if x.device.type == "cuda" and not get_flags().force_plain:
-        out = flash_attention(q, k, v, causal=True, window=window)
+    f = get_flags()
+    if x.device.type == "cuda" and not f.force_plain and \
+            f.attention_impl == "kernel":
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              chunk=chunk)
     else:
         out = chunked_attention(q, k, v, chunk=chunk, window=window)
     return linear(out.reshape(b, s, h * hd), p["wo"])

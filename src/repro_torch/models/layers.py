@@ -70,7 +70,9 @@ def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 def embed(tokens: torch.Tensor, p: Params,
           dtype: torch.dtype) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens]
+    # F.embedding rather than `table[tokens]`: the same gather, and one a
+    # capture of a CUDA program can trace on the CPU (core/torch_frontend)
+    return F.embedding(tokens, p["table"].to(dtype))
 
 
 def unembed(x: torch.Tensor, table_or_w: torch.Tensor,

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
@@ -167,6 +168,26 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             x = x + mlp(h, p["ffn"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
+
+
+# -- loss --------------------------------------------------------------------
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict,
+            chunk: int = 512, aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token NLL over `log_softmax(logits)` plus `aux_weight *
+    aux`, as the reference's `loss_fn`.  batch: {"tokens", "labels"} (B, S)
+    int.  Forward only (the train step and its remat belong to a later
+    slice), so the reference's `remat` has no counterpart."""
+    tokens = torch.as_tensor(batch["tokens"])
+    logits, aux = forward(params, cfg, tokens, chunk=chunk)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    # -logp at each label (the reference's take_along_axis), by nll_loss:
+    # the same gather, and one a capture of a CUDA program can trace on
+    # the CPU (core/torch_frontend)
+    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
+                     labels.reshape(-1).long(), reduction="none")
+    return nll.mean() + aux_weight * aux
 
 
 # -- decode ------------------------------------------------------------------

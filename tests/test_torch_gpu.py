@@ -85,6 +85,20 @@ def test_rmsnorm(r, d, dtype):
            BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
 
 
+@pytest.mark.parametrize("d", [512, 896, 1600])
+@pytest.mark.parametrize("r", [8, 13, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_baseline(r, d, dtype):
+    dev = _cuda()
+    x, scale = _inputs(6, [(r, d), (d,)], dtype, dev)
+    scale = 1.0 + 0.1 * scale
+    before = ops.rmsnorm_baseline.launches
+    out = ops.rmsnorm_baseline(x, scale)
+    assert ops.rmsnorm_baseline.launches == before + 1
+    _close(out, ops.rmsnorm_plain(x, scale),
+           BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     half = torch.ones((8, 896), device=dev, dtype=torch.float16)
@@ -93,6 +107,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # rows of 90 bytes: no 16-byte copies
         ops.rmsnorm_pipelined(torch.ones((8, 45), device=dev),
                               torch.ones(45, device=dev))
+    with pytest.raises(ValueError):  # a row longer than 64 values a lane
+        ops.rmsnorm_baseline(torch.ones((8, 2056), device=dev),
+                             torch.ones(2056, device=dev))
     q = torch.ones((1, 64, 4, 96), device=dev)
     with pytest.raises(ValueError):  # head_dim 96 is not instantiated
         ops.flash_attention(q, q, q)
@@ -110,7 +127,7 @@ def test_prefill_kernel_path_matches_plain_path():
     logits, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
-                                   "ssm_scan": 0}
+                                   "rmsnorm_baseline": 0, "ssm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
@@ -169,16 +186,49 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take():
     assert ops.ssm_scan.launches == before
 
 
-def test_swa_head_dim_120_raises_on_the_card():
-    """h2o-danube's hd 120 is not a head dim K1 is built for: on the card
-    its prefill raises rather than taking the plain path."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_120(dtype):
+    """h2o-danube's hd 120 runs as hd 128, zero-padded, at 1/sqrt(120)."""
+    dev = _cuda()
+    q, k, v = _inputs(8, [(2, 256, 4, 120), (2, 256, 2, 120),
+                          (2, 256, 2, 120)], dtype, dev)
+    out = ops.flash_attention(q, k, v, window=64)
+    assert out.shape == q.shape and out.is_contiguous()
+    _close(out, ops.flash_attention_plain(q, k, v, window=64), TOL[dtype])
+
+
+def test_swa_head_dim_120_kernel_path_matches_plain_path():
+    """h2o-danube's prefill at hd 120 goes through K1 on the card and
+    equals the plain path (it raised before K1 padded hd 120)."""
     dev = _cuda()
     cfg = dataclasses.replace(smoke_config(get_config("h2o-danube-3-4b")),
-                              head_dim=120)
+                              head_dim=120, dtype="float32")
     params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 32), device=dev)
-    with pytest.raises(ValueError, match="head_dim 120"):
-        tt.forward(params, cfg, tokens=tokens)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 160), device=dev)
+    ops.reset_launch_counts()
+    logits, _ = tt.forward(params, cfg, tokens=tokens)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    with flags(force_plain=True):
+        plain, _ = tt.forward(params, cfg, tokens=tokens)
+    _close(logits, plain, (1e-4, 1e-4))
+
+
+def test_capture_on_the_card_launches_nothing():
+    """The capture of the card's own program (real CUDA tensors in, fake
+    tensors inside) runs no kernel and sees each kernel as a region."""
+    from repro_torch.core import analyze_module, capture
+    dev = _cuda()
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = {"tokens": torch.zeros((2, 64), dtype=torch.long, device=dev),
+             "labels": torch.zeros((2, 64), dtype=torch.long, device=dev)}
+    ops.reset_launch_counts()
+    module = capture(lambda p, b: tt.loss_fn(p, cfg, b, chunk=32), params,
+                     batch)
+    assert set(ops.launch_counts().values()) == {0}
+    assert module.kernel_calls == {"rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+                                   "flash_attention": cfg.n_layers}
+    assert analyze_module(module, "nvidia_h100_sxm").chains
 
 
 def test_hymba_prefill_kernel_path_matches_plain_path():
@@ -191,6 +241,7 @@ def test_hymba_prefill_kernel_path_matches_plain_path():
     logits, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+                                   "rmsnorm_baseline": 0,
                                    "ssm_scan": cfg.n_layers}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)

@@ -32,7 +32,8 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_jax_or_reference_in_sys_modules():
-    """Import the port, run one CPU forward and one CPU serve tick in a fresh
+    """Import the port, run one CPU forward and one CPU serve tick, capture
+    the CUDA program of the smoke loss and diagnose it in a fresh
     interpreter, and look at what got imported."""
     code = """
 import sys, torch
@@ -55,6 +56,17 @@ assert forward(params, cfg, torch.tensor([[1, 2, 3]]))[0].shape == \
 engine = ServeEngine(cfg, params, 2, 16, device="cpu")
 engine.submit(Request(0, [5, 6], 2))
 engine.tick()
+from repro_torch.core import analyze_module, capture
+from repro_torch.models import loss_fn
+cfg = smoke_config(get_config("qwen2-0.5b"))
+params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+batch = {"tokens": torch.zeros((2, 64), dtype=torch.long),
+         "labels": torch.zeros((2, 64), dtype=torch.long)}
+module = capture(lambda p, b: loss_fn(p, cfg, b, chunk=32), params, batch,
+                 device="cuda")
+assert module.kernel_calls["flash_attention"] == cfg.n_layers
+an = analyze_module(module, "nvidia_h100_sxm")
+assert an.estimated_step_seconds > 0 and an.chains
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
@@ -121,7 +133,7 @@ def test_build_without_nvcc_raises(no_nvcc):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined",
-                                    "ssm_scan"])
+                                    "rmsnorm_baseline", "ssm_scan"])
 def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     from repro_torch.kernels import ops
     fn = ops.KERNELS[kernel]
@@ -137,6 +149,12 @@ def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     with pytest.raises(no_nvcc.BuildError):
         fn(*args)
     assert fn.launches == before
+
+
+def test_ptx_without_nvcc_raises(no_nvcc):
+    with pytest.raises(no_nvcc.BuildError, match="nvcc not found"):
+        no_nvcc.ptx("rmsnorm.cu")
+    assert not (no_nvcc.BUILD_DIR).exists()
 
 
 def test_library_name_follows_sources(monkeypatch, tmp_path):
