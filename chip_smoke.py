@@ -30,8 +30,7 @@ error:
      (and against `forward` with a window one key short or long);
   9. the baseline RMSNorm kernel (K3) against its plain version at D 896
      and 1600, R 8 and 4096, f32 and bf16, timed beside the pipelined one
-     (K2) and `F.rms_norm`, with the eager cost of a call through each
-     kernel's registered op;
+     (K2) and `F.rms_norm`, with the eager cost of a call to each;
  10. the paper's baseline-vs-pipelined RMSNorm study on the card's own
      code: the PTX of csrc/rmsnorm.cu through `repro_torch.core`'s PTX
      front-end, both kernels diagnosed on `nvidia_h100_sxm` (the pipelined
@@ -39,7 +38,8 @@ error:
      the baseline none), then both kernels through their entry points;
  11. the LEO loop at full qwen2-0.5b width: `loss_fn` (B 4 x S 1024, bf16)
      under attention_impl="plain" and "kernel" on the card, the two losses
-     within a limit that a causal band one key off exceeds; both programs
+     within a limit that a causal band one key off exceeds, on the weights
+     and batches of two seeds; both programs
      captured and diagnosed on `nvidia_h100_sxm` and held to the four cases
      of `tests/test_system.py::TestLeoGuidedLoop`; LEO's estimate beside
      the measured time, and the card's copy and bf16 matmul rates.
@@ -71,11 +71,14 @@ PEAK_BYTES = 3.35e12
 ARCH = "qwen2-0.5b"
 HYBRID_ARCH = "hymba-1.5b"
 # Phase 11: |loss(kernel) - loss(plain)| at full qwen2-0.5b width in bf16,
-# random weights from seed 0, B 4 x S 1024.  The card has read 3.5e-3 on a
-# loss of 527.86 (bf16 rounds the two paths' attention outputs at other
-# places through 24 layers); the limit is about 8x that, and K1 with its
-# causal band one key off moves the loss by 0.33, 11x the limit.
-LOSS_LIMIT = 3e-2
+# B 4 x S 1024, random weights and batch from each of LOSS_SEEDS.  The card
+# read 3.5e-3 on a loss of 527.86 at seed 0 (bf16 rounds the two paths'
+# attention outputs at other places through 24 layers); K1 with its causal
+# band one key off moved that loss by 0.33.  The limit is about 3x the
+# reading, and the script holds both seeds to it and requires the fault
+# to fall outside it on both.
+LOSS_LIMIT = 1e-2
+LOSS_SEEDS = (0, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -697,8 +700,7 @@ def profile_decode(torch, np, cfg, params, ServeEngine, Request, ticks: int):
 def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     """K3 against `rmsnorm_plain` element by element at K2's tolerances
     (f32 1e-5, bf16 one bf16 step), timed beside K2 and `F.rms_norm` on the
-    same inputs, and the eager call of each kernel directly and through its
-    registered op (`torch.ops.repro_torch.*`, what a capture records)."""
+    same inputs, and the eager call of each kernel."""
     dtype = getattr(torch, dt_name)
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = (0.5 * torch.randn((r, d), generator=gen, device="cuda")).to(dtype)
@@ -714,7 +716,6 @@ def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     row = {"case": case, "max_abs_err": err, "tol": tol}
     row["bound_ms"], row["bound_by"] = bound(4.0 * r * d, (2 * r * d + d) *
                                              x.element_size(), dt_name)
-    op = torch.ops.repro_torch
     row["ms"] = time_ms(torch, lambda: ops.rmsnorm_baseline(x, scale))
     row["pipelined_ms"] = time_ms(torch, lambda: ops.rmsnorm_pipelined(
         x, scale))
@@ -722,22 +723,16 @@ def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     row["library_ms"] = time_ms(torch, lambda: F.rms_norm(
         x, (d,), weight=scale, eps=1e-5))
     row["call_ms"] = call_ms(torch, lambda: ops.rmsnorm_baseline(x, scale))
-    row["op_call_ms"] = call_ms(torch, lambda: op.rmsnorm_baseline(
-        x, scale, 1e-5))
     row["pipelined_call_ms"] = call_ms(torch, lambda: ops.rmsnorm_pipelined(
         x, scale))
-    row["pipelined_op_call_ms"] = call_ms(
-        torch, lambda: op.rmsnorm_pipelined(x, scale, 1e-5))
     row["baseline_over_pipelined"] = row["ms"] / row["pipelined_ms"]
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol}), ms {row['ms']:.4f}"
           f", pipelined ms {row['pipelined_ms']:.4f} (baseline/pipelined "
           f"{row['baseline_over_pipelined']:.3f}), plain_ms "
           f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f}, "
           f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); eager call "
-          f"ms: baseline {row['call_ms']:.4f} direct / "
-          f"{row['op_call_ms']:.4f} registered op, pipelined "
-          f"{row['pipelined_call_ms']:.4f} / "
-          f"{row['pipelined_op_call_ms']:.4f}")
+          f"ms: baseline {row['call_ms']:.4f}, pipelined "
+          f"{row['pipelined_call_ms']:.4f}")
     return row
 
 
@@ -827,18 +822,15 @@ def shifted_keys_attention(flash_attention):
     return faulty
 
 
-def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
-                 attention_module):
-    """The LEO loop at full qwen2-0.5b width, B 4 x S 1024, bf16: the loss
-    on the card under attention_impl="plain" and "kernel", each with the
-    launch counts zeroed just before it and read just after; the two
-    losses within a limit read on the card, which a causal band one key off
-    must exceed; then each program captured and diagnosed on
-    `nvidia_h100_sxm`, held to the four cases of `tests/test_system.py::
-    TestLeoGuidedLoop`."""
-    b, s = 4, 1024
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    gen = torch.Generator(device="cuda").manual_seed(11)
+def compare_losses(torch, ops, cfg, flags, loss_fn, init_params,
+                   attention_module, seed: int, b: int, s: int):
+    """The loss on the card under attention_impl="plain" and "kernel", on
+    weights and a batch drawn from `seed`, each run with the launch counts
+    zeroed just before it and read just after; the two within LOSS_LIMIT,
+    and K1 with its causal band one key off outside it."""
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed))
+    gen = torch.Generator(device="cuda").manual_seed(11 + seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device="cuda"),
              "labels": torch.randint(0, cfg.vocab_size, (b, s),
@@ -875,17 +867,38 @@ def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
         attention_module.flash_attention = real
     gap = abs(runs["kernel"]["loss"] - runs["plain"]["loss"])
     fault_gap = abs(faulty - runs["plain"]["loss"])
-    limit = LOSS_LIMIT
-    print(f"  loss B{b} S{s} bf16: plain {runs['plain']['loss']:.6f} "
+    print(f"  loss B{b} S{s} bf16, seed {seed}: plain "
+          f"{runs['plain']['loss']:.6f} "
           f"({runs['plain']['seconds'] * 1e3:.3f} ms), kernel "
           f"{runs['kernel']['loss']:.6f} "
           f"({runs['kernel']['seconds'] * 1e3:.3f} ms), |kernel-plain| "
-          f"{gap:.3e} (limit {limit:g}); band one key off: {faulty:.6f}, "
-          f"|fault-plain| {fault_gap:.3e}; launches plain "
+          f"{gap:.3e} (limit {LOSS_LIMIT:g}); band one key off: "
+          f"{faulty:.6f}, |fault-plain| {fault_gap:.3e}; launches plain "
           f"{runs['plain']['launches']}, kernel {runs['kernel']['launches']}")
-    require(gap <= limit, f"loss: kernel vs plain differ by {gap}")
-    require(fault_gap > limit, f"loss: a band one key off moves the loss by "
-            f"{fault_gap}, within the limit: the check cannot see it")
+    require(gap <= LOSS_LIMIT, f"loss seed {seed}: kernel vs plain differ "
+            f"by {gap}")
+    require(fault_gap > LOSS_LIMIT, f"loss seed {seed}: a band one key off "
+            f"moves the loss by {fault_gap}, within the limit: the check "
+            f"cannot see it")
+    return {"runs": runs, "faulty_loss": faulty, "gap": gap,
+            "fault_gap": fault_gap, "inputs": (params, batch)}
+
+
+def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
+                 attention_module):
+    """The LEO loop at full qwen2-0.5b width, B 4 x S 1024, bf16: the two
+    losses compared on each of LOSS_SEEDS (`compare_losses`); then the
+    first seed's program under each attention_impl captured and diagnosed on
+    `nvidia_h100_sxm`, held to the four cases of `tests/test_system.py::
+    TestLeoGuidedLoop`."""
+    b, s = 4, 1024
+    seeds = {seed: compare_losses(torch, ops, cfg, flags, loss_fn,
+                                  init_params, attention_module, seed, b, s)
+             for seed in LOSS_SEEDS}
+    params, batch = seeds[LOSS_SEEDS[0]].pop("inputs")
+    for seed in LOSS_SEEDS[1:]:
+        del seeds[seed]["inputs"]
+    runs = seeds[LOSS_SEEDS[0]]["runs"]
 
     backend = core.get_backend("nvidia_h100_sxm")
     diag = {}
@@ -952,11 +965,10 @@ def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
           f"backend's {backend.hw.hbm_bw / 1e12:.2f}; bf16 matmul "
           f"{rates['bf16_matmul_flops'] / 1e12:.1f} TFLOP/s beside "
           f"{backend.hw.peak_flops_bf16 / 1e12:.0f}")
-    return {"B": b, "S": s, "runs": runs, "faulty_loss": faulty,
-            "gap": gap, "fault_gap": fault_gap, "limit": limit,
+    return {"B": b, "S": s, "limit": LOSS_LIMIT, "seeds": seeds,
             "diagnosis": diag, "rates": rates,
-            "launches": {k: runs["plain"]["launches"][k] +
-                         runs["kernel"]["launches"][k]
+            "launches": {k: sum(r["launches"][k] for one in seeds.values()
+                                for r in one["runs"].values())
                          for k in runs["plain"]["launches"]}}
 
 

@@ -24,12 +24,13 @@ One `Instruction` per dispatched op, in the single entry computation:
 * `source_file`/`source_line` are the innermost frame of the `repro_torch`
   package on the stack (this front-end's own frames excluded), `op_name`
   the chain of function names from the outermost such frame in.
-* a hand kernel reaches the program as one registered op
-  (`torch.ops.repro_torch.*`, see `kernels/ops.py`).  Its node becomes one
-  fused region: the front-end runs the function the reference marks for
-  that kernel (`chunked_attention` for flash attention, the plain versions
-  for the others) on the same fake inputs, records its ops with
-  `FUSED_REGION_MARK` in their `op_name`, and `fusion_model.
+* a hand kernel is one fused region.  The models call each kernel's
+  wrapper through `kernel_call`, which under a capture launches nothing:
+  it runs the wrapper's checks (a capture of a CUDA program refuses what
+  the kernel refuses) and records the plain function the model hands it
+  (`chunked_attention` at the plain path's chunk for flash attention, as
+  the reference marks it; the plain versions for the others) with
+  `FUSED_REGION_MARK` in each op's `op_name`; `fusion_model.
   _apply_fused_regions` prices the region as on-chip.  FLOPs are those of
   the plain path by construction.  No other fusion is applied: eager
   PyTorch launches each aten op as its own kernel, and that is what the card
@@ -156,29 +157,6 @@ def _stack() -> List[Tuple[str, int, str]]:
     return frames
 
 
-def _region_functions() -> Dict[str, Callable]:
-    """The function whose traced ops stand for each hand kernel's region:
-    the one the reference marks with `FUSED_REGION_MARK` for flash
-    attention (`models/attention.py::chunked_attention`, at the plain
-    path's chunk), the plain version for the others."""
-    from ..kernels.flash_attention import flash_attention_plain
-    from ..kernels.rmsnorm import rmsnorm_plain
-    from ..kernels.ssm_scan import ssm_scan_plain
-    from ..models.attention import chunked_attention
-
-    def attention(q, k, v, causal, window, block_q, block_k, chunk):
-        if causal:
-            return chunked_attention(q, k, v, chunk=chunk, window=window)
-        return flash_attention_plain(q, k, v, causal=False, window=window)
-
-    def rmsnorm(x, scale, eps):
-        return rmsnorm_plain(x, scale, eps=eps)
-
-    return {"flash_attention": attention, "rmsnorm_pipelined": rmsnorm,
-            "rmsnorm_baseline": rmsnorm,
-            "ssm_scan": lambda a, bx, c, chunk: ssm_scan_plain(a, bx, c)}
-
-
 class _Recorder(TorchDispatchMode):
     """Appends one Instruction per dispatched op to `comp`."""
 
@@ -189,8 +167,7 @@ class _Recorder(TorchDispatchMode):
         self.names: Dict[int, str] = {}
         self.keep: List[torch.Tensor] = []  # ids stay unique while alive
         self.counter = itertools.count()
-        self.regions = _region_functions()
-        self.region: Optional[Tuple[int, str]] = None  # (depth, kernel)
+        self.open_region: Optional[Tuple[int, str]] = None  # (depth, name)
         self.kernel_calls: Dict[str, int] = {}
 
     # -- naming -----------------------------------------------------------
@@ -226,8 +203,8 @@ class _Recorder(TorchDispatchMode):
     def where(self) -> Tuple[str, str, int]:
         frames = _stack()
         chain = [fn for _, _, fn in frames]
-        if self.region is not None:
-            depth, kernel = self.region
+        if self.open_region is not None:
+            depth, kernel = self.open_region
             chain = chain[:depth] + [f"{FUSED_REGION_MARK}:{kernel}"] + \
                 chain[depth:]
         op_name = "/".join([self.scope] + chain)
@@ -240,12 +217,18 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func.namespace == "repro_torch":
-            raise RuntimeError(f"capture: the kernel op {func} reached the "
-                               f"dispatcher outside a capture's region")
         out = func(*args, **kwargs)
         self.record(func, args, kwargs, out)
         return out
+
+    def region(self, kernel: str, plain: Callable[[], Any]) -> Any:
+        """Run `plain()` with its ops marked as one region of `kernel`."""
+        self.kernel_calls[kernel] = self.kernel_calls.get(kernel, 0) + 1
+        self.open_region = (len(_stack()), kernel)
+        try:
+            return plain()
+        finally:
+            self.open_region = None
 
     def record(self, func, args, kwargs, out) -> None:
         flat_in = [a for a in tree_flatten((args, kwargs))[0]
@@ -277,29 +260,15 @@ class _Recorder(TorchDispatchMode):
 
 
 class _Functions(TorchFunctionMode):
-    """The Python-level half of a capture.
-
-    * A hand kernel's registered op (`torch.ops.repro_torch.*`) becomes its
-      region: the recorder marks the region, and the region's function runs
-      here, above the dispatcher, so its composite ops (`einsum`,
-      `repeat_interleave`) reach the recorder as the aten ops they run as,
-      exactly as on the plain path.
-    * `t[...]` with ints, slices, `None` and `...` becomes `select` /
-      `narrow` / `unsqueeze` calls, and `~t` `bitwise_not(t)`: the same ops,
-      but PyTorch's C++ indexing and inversion take a device guard first,
-      which a build without CUDA refuses for a fake CUDA tensor, so a CUDA
-      program can be captured on the CPU.  Other indexing goes through
-      unchanged."""
-
-    def __init__(self, recorder: "_Recorder"):
-        super().__init__()
-        self.recorder = recorder
+    """The Python-level half of a capture: `t[...]` with ints, slices,
+    `None` and `...` becomes `select` / `narrow` / `unsqueeze` calls, and
+    `~t` `bitwise_not(t)`.  The same ops, but PyTorch's C++ indexing and
+    inversion take a device guard first, which a build without CUDA refuses
+    for a fake CUDA tensor, so a CUDA program can be captured on the CPU.
+    Other indexing goes through unchanged."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        qualified = getattr(func, "_qualified_op_name", "")
-        if qualified.startswith("repro_torch::"):
-            return self.region(qualified.split("::", 1)[1], args, kwargs)
         if func is torch.Tensor.__getitem__ and not kwargs:
             out = _basic_getitem(*args)
             if out is not None:
@@ -307,20 +276,6 @@ class _Functions(TorchFunctionMode):
         if func is torch.Tensor.__invert__:
             return torch.bitwise_not(*args)
         return func(*args, **kwargs)
-
-    def region(self, kernel: str, args, kwargs):
-        rec = self.recorder
-        fn = rec.regions.get(kernel)
-        if fn is None or rec.region is not None:
-            raise NotImplementedError(
-                f"capture: no region function for the kernel {kernel}")
-        rec.kernel_calls[kernel] = rec.kernel_calls.get(kernel, 0) + 1
-        rec.region = (len(_stack()), kernel)
-        try:
-            with self:
-                return fn(*args, **kwargs)
-        finally:
-            rec.region = None
 
 
 def _basic_getitem(t: torch.Tensor, index) -> Optional[torch.Tensor]:
@@ -371,6 +326,21 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
     instr.bytes_written = float(instr.shape.byte_size)
 
 
+_ACTIVE: Optional[_Recorder] = None  # the recorder of the running capture
+
+
+def kernel_call(kernel: Callable, *args, plain: Callable[[], Any],
+                **kwargs) -> Any:
+    """`kernel(*args, **kwargs)`: the models call each hand kernel's wrapper
+    through here.  Under `capture` nothing launches: `kernel.check(*args,
+    **kwargs)` raises what the wrapper would raise, then `plain()` runs and
+    its ops are recorded as one fused region of the kernel."""
+    if _ACTIVE is None:
+        return kernel(*args, **kwargs)
+    kernel.check(*args, **kwargs)
+    return _ACTIVE.region(kernel.__name__, plain)
+
+
 def capture(fn: Callable, *args, name: Optional[str] = None,
             device=None) -> Module:
     """Capture `fn(*args)` into a `Module`.
@@ -403,8 +373,15 @@ def capture(fn: Callable, *args, name: Optional[str] = None,
         if isinstance(leaf, torch.Tensor):
             recorder.parameter(path, leaf, index)
             index += 1
-    with fake_mode, recorder, _Functions(recorder):
-        out = fn(*fargs)
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError("capture: a capture is already running")
+    _ACTIVE = recorder
+    try:
+        with fake_mode, recorder, _Functions():
+            out = fn(*fargs)
+    finally:
+        _ACTIVE = None
     for leaf in reversed([o for o in tree_flatten(out)[0]
                           if isinstance(o, torch.Tensor)]):
         root = comp.get(recorder.names.get(id(leaf), ""))

@@ -22,7 +22,6 @@ import tempfile
 from pathlib import Path
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -148,13 +147,6 @@ def ptx(source: str) -> Path:
                              f"{' '.join(cmd)}\n{res.stdout}")
         os.replace(tmp_out, out)
     return out
-
-
-def is_fake(t: torch.Tensor) -> bool:
-    """True for a tensor of a capture (`core/torch_frontend.capture` runs
-    the program on fake tensors): a wrapper then calls its registered op,
-    which the capture records as one node, instead of launching."""
-    return isinstance(t, FakeTensor)
 
 
 @functools.lru_cache(maxsize=None)

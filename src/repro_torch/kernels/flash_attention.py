@@ -17,10 +17,9 @@ tensor to the kernel; on anything else, or on a CUDA input the kernel does
 not take, it raises.  It never falls back.  The kernel is built for head
 dims 16, 32, 64 and 128; h2o-danube-3-4b's 120 runs as 128: the wrapper
 zero-pads q, k and v (zero columns change no score, and the padded output
-columns are dropped) and passes the scale 1/sqrt(120).  The fake CUDA
-tensors of a capture (`core/torch_frontend.capture`) go to the registered
-op `torch.ops.repro_torch.flash_attention`, one node in the captured
-program; the run path calls the kernel directly.
+columns are dropped) and passes the scale 1/sqrt(120).
+`check_flash_attention` (also the wrapper's `check`) raises what the
+wrapper raises for a CUDA input, and launches nothing.
 """
 from __future__ import annotations
 
@@ -62,8 +61,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _check_cuda(q, k, v, block_q: int, block_k: int,
-                window: Optional[int]) -> None:
+def check_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: Optional[int] = None, block_q: int = 64,
+                          block_k: int = 64) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}; "
@@ -84,21 +85,29 @@ def _check_cuda(q, k, v, block_q: int, block_k: int,
     if hd not in HEAD_DIMS and hd not in PADDED_HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
                          f"{HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
+    # the kernel stages K and V tiles at the head dim it runs at
+    hd_run = PADDED_HEAD_DIMS.get(hd, hd)
     if not 1 <= block_q <= 1024 or block_k < 1 or \
-            2 * block_k * hd * 4 > _build.MAX_SMEM:
+            2 * block_k * hd_run * 4 > _build.MAX_SMEM:
         raise ValueError(f"flash_attention: block_q {block_q}, block_k "
-                         f"{block_k} out of range")
+                         f"{block_k} out of range at head dim {hd_run}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
     if h > 65535 or b > 65535:
         raise ValueError("flash_attention: B and H must be <= 65535")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: Optional[int], block_q: int,
-            block_k: int) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """q (B,S,H,hd); k/v (B,S,Kv,hd) with H % Kv == 0. Returns (B,S,H,hd).
+
+    Forward only: nothing in the port trains through it yet."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     lib = _build.library()
-    _check_cuda(q, k, v, block_q, block_k, window)
+    check_flash_attention(q, k, v, window=window, block_q=block_q,
+                          block_k=block_k)
     b, s, h, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     hd_run = PADDED_HEAD_DIMS.get(hd, hd)
@@ -115,42 +124,5 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if hd_run == hd else out[..., :hd].contiguous()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    block_q: int = 64, block_k: int = 64,
-                    chunk: int = 512) -> torch.Tensor:
-    """q (B,S,H,hd); k/v (B,S,Kv,hd) with H % Kv == 0. Returns (B,S,H,hd).
-
-    `chunk` is the block of the plain path (`models/attention.py::
-    chunked_attention`) that a capture expands the kernel's region into,
-    so the captured program's FLOPs equal the plain program's; the kernel
-    does not read it.  Forward only: nothing in the port trains through it
-    yet."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if _build.is_fake(q):
-        _check_cuda(q, k, v, block_q, block_k, window)
-        return torch.ops.repro_torch.flash_attention(
-            q, k, v, causal, window, block_q, block_k, chunk)
-    return _launch(q, k, v, causal, window, block_q, block_k)
-
-
 flash_attention.launches = 0
-
-
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
-                         device_types="cpu")
-def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool, window: Optional[int], block_q: int,
-                        block_k: int, chunk: int) -> torch.Tensor:
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
-
-
-@_flash_attention_op.register_kernel("cuda")
-def _(q, k, v, causal, window, block_q, block_k, chunk):
-    return _launch(q, k, v, causal, window, block_q, block_k)
-
-
-@_flash_attention_op.register_fake
-def _(q, k, v, causal, window, block_q, block_k, chunk):
-    return torch.empty_like(q)
+flash_attention.check = check_flash_attention

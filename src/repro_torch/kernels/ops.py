@@ -3,12 +3,6 @@
 `rmsnorm_baseline_op` the baseline of the case study, and `ssm_scan_op`
 the selective scan.
 
-Each kernel is also a registered op, `torch.ops.repro_torch.<name>`, whose
-CPU implementation is the plain version and whose CUDA implementation is
-the kernel: a capture of the port's program (`core/torch_frontend.capture`)
-sees each kernel call as one node.  The wrappers call the kernels directly
-on the run path.
-
 `launch_counts()` / `reset_launch_counts()` read and zero the wrappers'
 launch counters, so a run can show that its path went through the kernels.
 """

@@ -20,10 +20,9 @@ Each kernel reads each input byte once and writes each output byte once.
 
 Each wrapper takes a CPU tensor to `rmsnorm_plain` and a CUDA tensor to its
 kernel; on anything else, or on a CUDA input the kernel does not take, it
-raises.  It never falls back.  The fake CUDA tensors of a capture
-(`core/torch_frontend.capture`) go to the registered op
-`torch.ops.repro_torch.<name>`, one node in the captured program; the run
-path calls the kernel directly (`PERF.md` gives the eager cost of each).
+raises.  It never falls back.  `check_rmsnorm_pipelined` and
+`check_rmsnorm_baseline` (also each wrapper's `check`) raise what the
+wrappers raise for a CUDA input, and launch nothing.
 """
 from __future__ import annotations
 
@@ -65,18 +64,20 @@ def _check_cuda(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _check_pipelined(x: torch.Tensor, scale: torch.Tensor) -> None:
+def check_rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
+                            eps: float = 1e-5) -> None:
     _check_cuda("rmsnorm_pipelined", x, scale)
     row_bytes = x.shape[1] * x.element_size()
-    if row_bytes % 16 or (not _build.is_fake(x) and x.data_ptr() % 16):
+    if row_bytes % 16:
         raise ValueError(f"rmsnorm_pipelined: rows of {row_bytes} bytes; "
-                         f"cp.async needs 16-byte multiples and alignment")
+                         f"cp.async needs 16-byte multiples")
     if 2 * ROWS_PER_BLOCK * row_bytes > _build.MAX_SMEM:
         raise ValueError(f"rmsnorm_pipelined: D={x.shape[1]} too wide for "
                          f"the shared-memory ring")
 
 
-def _check_baseline(x: torch.Tensor, scale: torch.Tensor) -> None:
+def check_rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
+                           eps: float = 1e-5) -> None:
     _check_cuda("rmsnorm_baseline", x, scale)
     if x.shape[1] > BASELINE_MAX_D:
         raise ValueError(f"rmsnorm_baseline: D={x.shape[1]} above "
@@ -84,10 +85,16 @@ def _check_baseline(x: torch.Tensor, scale: torch.Tensor) -> None:
                          f"registers")
 
 
-def _launch_pipelined(x: torch.Tensor, scale: torch.Tensor,
-                      eps: float) -> torch.Tensor:
+def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """x (R, D); scale (D,).  Returns (R, D) in x's dtype."""
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps=eps)
     lib = _build.library()
-    _check_pipelined(x, scale)
+    check_rmsnorm_pipelined(x, scale)
+    if x.data_ptr() % 16:
+        raise ValueError(f"rmsnorm_pipelined: x at {x.data_ptr():#x}; "
+                         f"cp.async needs 16-byte alignment")
     r, d = x.shape
     n_blocks = -(-r // ROWS_PER_BLOCK)
     # one block per SM, each walking several row blocks: what it walks is
@@ -103,10 +110,14 @@ def _launch_pipelined(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _launch_baseline(x: torch.Tensor, scale: torch.Tensor,
-                     eps: float) -> torch.Tensor:
+def rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """x (R, D) with D <= 2048; scale (D,).  Returns (R, D) in x's
+    dtype."""
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps=eps)
     lib = _build.library()
-    _check_baseline(x, scale)
+    check_rmsnorm_baseline(x, scale)
     r, d = x.shape
     out = torch.empty_like(x)
     err = lib.repro_rmsnorm_baseline_fwd(
@@ -118,49 +129,7 @@ def _launch_baseline(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """x (R, D); scale (D,).  Returns (R, D) in x's dtype."""
-    if x.device.type == "cpu" and scale.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps=eps)
-    if _build.is_fake(x):
-        _check_pipelined(x, scale)
-        return torch.ops.repro_torch.rmsnorm_pipelined(x, scale, eps)
-    return _launch_pipelined(x, scale, eps)
-
-
-def rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """x (R, D) with D <= 2048; scale (D,).  Returns (R, D) in x's
-    dtype."""
-    if x.device.type == "cpu" and scale.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps=eps)
-    if _build.is_fake(x):
-        _check_baseline(x, scale)
-        return torch.ops.repro_torch.rmsnorm_baseline(x, scale, eps)
-    return _launch_baseline(x, scale, eps)
-
-
 rmsnorm_pipelined.launches = 0
+rmsnorm_pipelined.check = check_rmsnorm_pipelined
 rmsnorm_baseline.launches = 0
-
-
-# -- registered ops: CPU the plain version, CUDA the kernel -----------------
-
-def _register(name: str, launch) -> None:
-    @torch.library.custom_op(f"repro_torch::{name}", mutates_args=(),
-                             device_types="cpu")
-    def op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-        return rmsnorm_plain(x, scale, eps=eps)
-
-    @op.register_kernel("cuda")
-    def _(x, scale, eps):
-        return launch(x, scale, eps)
-
-    @op.register_fake
-    def _(x, scale, eps):
-        return torch.empty_like(x)
-
-
-_register("rmsnorm_pipelined", _launch_pipelined)
-_register("rmsnorm_baseline", _launch_baseline)
+rmsnorm_baseline.check = check_rmsnorm_baseline

@@ -12,9 +12,9 @@ over 3.35 TB/s (a/bx/c read once, y written once).
 
 `ssm_scan` takes CPU tensors to `ssm_scan_plain` and CUDA tensors to the
 kernel; on anything else, or on a CUDA input the kernel does not take, it
-raises.  It never falls back.  The fake CUDA tensors of a capture
-(`core/torch_frontend.capture`) go to the registered op
-`torch.ops.repro_torch.ssm_scan`, one node in the captured program.
+raises.  It never falls back.  `check_ssm_scan` (also the wrapper's
+`check`) raises what the wrapper raises for a CUDA input, and launches
+nothing.
 """
 from __future__ import annotations
 
@@ -36,8 +36,8 @@ def ssm_scan_plain(a: torch.Tensor, bx: torch.Tensor,
     return torch.stack(ys, dim=1)
 
 
-def _check_cuda(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-                chunk: int) -> None:
+def check_ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
+                   chunk: int = 16) -> None:
     for name, t in (("a", a), ("bx", bx), ("c", c)):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"ssm_scan: {name} is on {t.device}; all "
@@ -65,10 +65,17 @@ def _check_cuda(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"ssm_scan: chunk {chunk} must be >= 1")
 
 
-def _launch(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-            chunk: int) -> torch.Tensor:
+def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
+             chunk: int = 16) -> torch.Tensor:
+    """a/bx (B,S,din,N) discretized recurrence terms; c (B,S,N) readout.
+
+    Returns y (B,S,din) f32.  `chunk` is the TPU kernel's time block; the
+    CUDA kernel walks the whole sequence in one loop, so it is checked and
+    does not change the result."""
+    if all(t.device.type == "cpu" for t in (a, bx, c)):
+        return ssm_scan_plain(a, bx, c)
     lib = _build.library()
-    _check_cuda(a, bx, c, chunk)
+    check_ssm_scan(a, bx, c, chunk=chunk)
     b, s, din, n = a.shape
     y = torch.empty((b, s, din), dtype=torch.float32, device=a.device)
     err = lib.repro_ssm_scan_fwd(
@@ -80,37 +87,5 @@ def _launch(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     return y
 
 
-def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
-             chunk: int = 16) -> torch.Tensor:
-    """a/bx (B,S,din,N) discretized recurrence terms; c (B,S,N) readout.
-
-    Returns y (B,S,din) f32.  `chunk` is the TPU kernel's time block; the
-    CUDA kernel walks the whole sequence in one loop, so it is checked and
-    does not change the result."""
-    if all(t.device.type == "cpu" for t in (a, bx, c)):
-        return ssm_scan_plain(a, bx, c)
-    if _build.is_fake(a):
-        _check_cuda(a, bx, c, chunk)
-        return torch.ops.repro_torch.ssm_scan(a, bx, c, chunk)
-    return _launch(a, bx, c, chunk)
-
-
 ssm_scan.launches = 0
-
-
-@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
-                         device_types="cpu")
-def _ssm_scan_op(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-                 chunk: int) -> torch.Tensor:
-    return ssm_scan_plain(a, bx, c)
-
-
-@_ssm_scan_op.register_kernel("cuda")
-def _(a, bx, c, chunk):
-    return _launch(a, bx, c, chunk)
-
-
-@_ssm_scan_op.register_fake
-def _(a, bx, c, chunk):
-    b, s, din, _ = a.shape
-    return a.new_empty((b, s, din), dtype=torch.float32)
+ssm_scan.check = check_ssm_scan

@@ -11,12 +11,14 @@ window)` entries.  MLA belongs to a later slice of the port.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.torch_frontend import kernel_call
 from ..kernels.flash_attention import flash_attention
 from .flags import get_flags
 from .layers import apply_rope, linear, rope_cos_sin
@@ -120,8 +122,11 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     f = get_flags()
     if x.device.type == "cuda" and not f.force_plain and \
             f.attention_impl == "kernel":
-        out = flash_attention(q, k, v, causal=True, window=window,
-                              chunk=chunk)
+        # a capture records the plain path as the kernel's region
+        out = kernel_call(flash_attention, q, k, v, causal=True,
+                          window=window, plain=functools.partial(
+                              chunked_attention, q, k, v, chunk=chunk,
+                              window=window))
     else:
         out = chunked_attention(q, k, v, chunk=chunk, window=window)
     return linear(out.reshape(b, s, h * hd), p["wo"])

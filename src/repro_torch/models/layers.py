@@ -7,11 +7,13 @@ path.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..core.torch_frontend import kernel_call
 from ..kernels.rmsnorm import rmsnorm_pipelined, rmsnorm_plain
 from .flags import get_flags
 
@@ -22,8 +24,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis in f32, cast back to x's dtype."""
     rows = x.reshape(-1, x.shape[-1])
-    fn = rmsnorm_plain if get_flags().force_plain else rmsnorm_pipelined
-    return fn(rows, scale, eps=eps).reshape(x.shape)
+    plain = functools.partial(rmsnorm_plain, rows, scale, eps=eps)
+    if rows.device.type == "cpu" or get_flags().force_plain:
+        return plain().reshape(x.shape)
+    return kernel_call(rmsnorm_pipelined, rows, scale, eps=eps,
+                       plain=plain).reshape(x.shape)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,

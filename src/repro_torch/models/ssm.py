@@ -12,12 +12,14 @@ state and is plain PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core.torch_frontend import kernel_call
 from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
 from .flags import get_flags
 from .layers import linear
@@ -70,7 +72,8 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     xin, z = xz[..., :din], xz[..., din:]
     a, bx, csel = _discretize(p, xin)
     if x.device.type == "cuda" and not get_flags().force_plain:
-        y = ssm_scan(a, bx, csel)
+        y = kernel_call(ssm_scan, a, bx, csel, plain=functools.partial(
+            ssm_scan_plain, a, bx, csel))
     else:
         y = ssm_scan_plain(a, bx, csel)
     return _readout(p, y, xin, z, x.dtype)

@@ -14,8 +14,12 @@ needed) and diagnosed by the port's analyzer.
   with FLOPs within 1%; coverage never degrades; the C+L(S) context carries
   recommendations.  And the reference's `tpu_v5p < tpu_v4 < tpu_v5e`
   ordering of estimated step time.
+* `kernel_call`, through which the models call each hand kernel, calls the
+  wrapper outside a capture; inside one it launches nothing, runs the
+  wrapper's checks and records the plain version as the kernel's region.
 """
 import dataclasses
+import functools
 import warnings
 
 import jax
@@ -29,9 +33,13 @@ from repro.configs import smoke_config as j_smoke
 from repro.models import init_params as j_init_params
 from repro.models import loss_fn as j_loss_fn
 from repro_torch.configs import get_config, smoke_config
+from torch._subclasses.fake_tensor import FakeTensorMode
+
 from repro_torch.core import (FUSED_REGION_MARK, OpClass, analyze_module,
                               capture, compute_roofline, diagnostic_context,
                               get_backend)
+from repro_torch.core.torch_frontend import kernel_call
+from repro_torch.kernels.flash_attention import check_flash_attention
 from repro_torch.kernels import ops
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.flags import flags
@@ -173,3 +181,65 @@ def test_cross_backend_ordering(programs):
                                   name).estimated_step_seconds
              for name in ("tpu_v5e", "tpu_v5p", "tpu_v4")}
     assert times["tpu_v5p"] < times["tpu_v4"] < times["tpu_v5e"]
+
+
+# wrapper, plain version, input shapes the kernel takes, shapes it refuses
+KERNEL_CASES = {
+    "flash_attention": (ops.flash_attention, ops.flash_attention_plain,
+                        [(1, 64, 4, 16), (1, 64, 2, 16), (1, 64, 2, 16)],
+                        [(1, 64, 4, 96)] * 3),  # head dim 96
+    "rmsnorm_pipelined": (ops.rmsnorm_pipelined, ops.rmsnorm_plain,
+                          [(8, 896), (896,)],
+                          [(8, 45), (45,)]),  # rows of 180 bytes
+    "rmsnorm_baseline": (ops.rmsnorm_baseline, ops.rmsnorm_plain,
+                         [(8, 896), (896,)],
+                         [(8, 2056), (2056,)]),  # above 64 values a lane
+    "ssm_scan": (ops.ssm_scan, ops.ssm_scan_plain,
+                 [(2, 16, 32, 16), (2, 16, 32, 16), (2, 16, 16)],
+                 [(2, 16, 32, 12), (2, 16, 32, 12), (2, 16, 12)]),  # N 12
+}
+
+
+def _call_kernel(kernel):
+    fn, plain = KERNEL_CASES[kernel][:2]
+    return lambda *a: kernel_call(fn, *a, plain=functools.partial(plain, *a))
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_CASES))
+def test_kernel_call_in_a_capture_records_the_plain_version(kernel):
+    args = [torch.rand(shape) for shape in KERNEL_CASES[kernel][2]]
+    ops.reset_launch_counts()
+    module = capture(_call_kernel(kernel), *args, device="cuda")
+    assert set(ops.launch_counts().values()) == {0}
+    assert module.kernel_calls == {kernel: 1}
+    recorded = [i for i in module.all_instructions()
+                if i.opcode not in ("parameter", "constant")]
+    assert recorded and all(f"{FUSED_REGION_MARK}:{kernel}" in i.op_name
+                            for i in recorded)
+    assert all(i.bytes_read == i.bytes_written == 0.0 for i in recorded)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_CASES))
+def test_kernel_call_in_a_capture_refuses_what_the_kernel_refuses(kernel):
+    args = [torch.rand(shape) for shape in KERNEL_CASES[kernel][3]]
+    with pytest.raises(ValueError, match=kernel):
+        capture(_call_kernel(kernel), *args, device="cuda")
+
+
+def test_kernel_call_outside_a_capture_calls_the_wrapper():
+    x, scale = torch.rand((8, 64)), torch.rand(64)
+
+    def never():
+        raise AssertionError("the plain version runs only in a capture")
+    out = kernel_call(ops.rmsnorm_pipelined, x, scale, plain=never)
+    assert torch.equal(out, ops.rmsnorm_plain(x, scale))
+
+
+def test_flash_attention_checks_shared_memory_at_the_padded_head_dim():
+    """hd 120 runs as 128: block_k 230 fits at 120 (220,800 bytes of K and
+    V tiles) but not at 128 (235,520, above the 232,448 a block may use)."""
+    with FakeTensorMode():
+        q = torch.empty((1, 64, 4, 120), device="cuda")
+        check_flash_attention(q, q, q, block_k=226)
+        with pytest.raises(ValueError, match="head dim 128"):
+            check_flash_attention(q, q, q, block_k=230)

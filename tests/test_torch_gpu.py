@@ -116,6 +116,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.ones((1, 64, 4, 64), device=dev)
     with pytest.raises(ValueError):  # not contiguous
         ops.flash_attention(q.transpose(1, 2), q, q)
+    q = torch.ones((1, 64, 4, 120), device=dev)
+    # block_k 230 fits shared memory at hd 120 but not at the 128 it runs at
+    with pytest.raises(ValueError, match="head dim 128"):
+        ops.flash_attention(q, q, q, block_k=230)
 
 
 def test_prefill_kernel_path_matches_plain_path():
