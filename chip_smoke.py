@@ -10,8 +10,10 @@ error:
   2. build the kernel library from src/repro_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (qwen2-0.5b and hymba-1.5b; flash attention also at
-     h2o-danube-3-4b's head dim 120), with its time, the plain version's,
-     its bound and a library call's as a yardstick;
+     h2o-danube-3-4b's head dim 120; both RMSNorm kernels also in f32 at
+     h2o-danube-3-4b's D 3840 and glm4-9b's 4096, the rows their wrappers
+     refused before), with its time, the plain version's, its bound and a
+     library call's as a yardstick;
   4. prefill at full qwen2-0.5b width (B 4 x S 1024) through
      `make_prefill_step`, kernel path against forced-plain path, with the
      launch counts of each kernel;
@@ -42,7 +44,16 @@ error:
      and batches of two seeds; both programs
      captured and diagnosed on `nvidia_h100_sxm` and held to the four cases
      of `tests/test_system.py::TestLeoGuidedLoop`; LEO's estimate beside
-     the measured time, and the card's copy and bf16 matmul rates.
+     the measured time, and the card's copy and bf16 matmul rates;
+ 12. the chunkwise mLSTM (K5) and sLSTM scan (K6) kernels against their
+     plain versions at the reference's test grids and at xlstm-125m's
+     prefill shapes, f32 and bf16, with times and bounds;
+ 13. prefill at full xlstm-125m width (12 layers: 9 mLSTM, 3 sLSTM; B 4 x
+     S 1024): the bf16 main path with its launch counts (exactly 9 K5 and
+     3 K6) and a `torch.profiler` pass over it, then the kernel path
+     against the forced-plain path in f32, and what K5 fed `log_f` one
+     step late gives;
+ 14. continuous-batching serve of xlstm-125m at full width, as phase 5.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -70,6 +81,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 ARCH = "qwen2-0.5b"
 HYBRID_ARCH = "hymba-1.5b"
+XLSTM_ARCH = "xlstm-125m"
 # Phase 11: |loss(kernel) - loss(plain)| at full qwen2-0.5b width in bf16,
 # B 4 x S 1024, random weights and batch from each of LOSS_SEEDS.  The card
 # read 3.5e-3 on a loss of 527.86 at seed 0 (bf16 rounds the two paths'
@@ -338,7 +350,17 @@ def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
             "max_abs_err": err, "max_abs_logit": scale, "top1": top1}
 
 
-def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name):
+def norm_launches(cfg, layer_descriptors) -> int:
+    """RMSNorm launches of one token through `cfg`: `ln1` of every block,
+    `ln2` of every block with an FFN, the mLSTM's output norm, the final
+    norm."""
+    return 1 + sum(1 + (ffn != "none") + (mixer == "mlstm")
+                   for mixer, ffn in layer_descriptors(cfg))
+
+
+def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name,
+              norms: int):
+    """`norms`: RMSNorm launches a decode tick (`norm_launches`)."""
     slots, max_len, n_req, new = 8, 1024, 12, 32
     rng = np.random.default_rng(4)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
@@ -372,9 +394,9 @@ def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name):
     for r in reqs:
         require(r.done and len(r.generated) == new,
                 f"request {r.rid}: {len(r.generated)} tokens, done={r.done}")
-    require(counts["rmsnorm_pipelined"] == (2 * cfg.n_layers + 1) *
-            engine.ticks, f"serve: {counts['rmsnorm_pipelined']} rmsnorm "
-            f"launches over {engine.ticks} ticks")
+    require(counts["rmsnorm_pipelined"] == norms * engine.ticks,
+            f"serve: {counts['rmsnorm_pipelined']} rmsnorm launches over "
+            f"{engine.ticks} ticks, expected {norms} a tick")
     require(mid_stream, "serve: no request was admitted mid-stream")
 
     late = mid_stream[-1]
@@ -448,7 +470,8 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
             "hybrid prefill logits not finite")
     expect = {"flash_attention": cfg.n_layers,
               "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
-              "rmsnorm_baseline": 0, "ssm_scan": cfg.n_layers}
+              "rmsnorm_baseline": 0, "ssm_scan": cfg.n_layers,
+              "mlstm_chunkwise": 0, "slstm_scan": 0}
     require(counts == expect, f"hybrid prefill: launches {counts}, "
             f"expected {expect}")
     print(f"  {cfg.name} bf16 prefill B{b} S{s}: {seconds:.3f} s, launches "
@@ -739,8 +762,8 @@ def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
 def run_case_study(torch, ops, core, build, csrc: Path, measured):
     """The paper's section VI-D(b) study on the card's own code: the PTX of
     csrc/rmsnorm.cu through the PTX front-end, both kernels diagnosed on
-    `nvidia_h100_sxm` in bf16 (K3 at D 896's instantiation, 32 values a
-    lane).  The pipelined kernel must show `mem_waitcnt` edges, its wait
+    `nvidia_h100_sxm` in bf16 (K2 at 8 rows a block, K3 at D 896's
+    instantiation, 32 values a lane).  The pipelined kernel must show `mem_waitcnt` edges, its wait
     attributed to the `cp.async.wait_group` line of csrc/rmsnorm.cu; the
     baseline must show none.  Then the study's measured half: each kernel
     through its entry point (`rmsnorm_op`, `rmsnorm_baseline_op`) at R 4096,
@@ -755,7 +778,7 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
     source_lines = (csrc / "rmsnorm.cu").read_text().splitlines()
     rows = {}
     for name, kernel, extra in (
-            ("rmsnorm_pipelined", "rmsnorm_pipelined_kernel", ()),
+            ("rmsnorm_pipelined", "rmsnorm_pipelined_kernel", ("Li8E",)),
             ("rmsnorm_baseline", "rmsnorm_baseline_kernel", ("Li32E",))):
         entry = find_entry(text, kernel, "bfloat16", *extra)
         t0 = time.perf_counter()
@@ -766,11 +789,19 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
                  if e.kind is core.EdgeKind.MEM_WAITCNT]
         sites = sorted({(Path(w.source_file).name, w.source_line)
                         for w in (module.find(e.consumer) for e in waits)})
+        stalls = {}
+        for record in an.profile.records.values():
+            for cls, cycles in record.stall_breakdown.items():
+                stalls[cls.name] = stalls.get(cls.name, 0.0) + cycles
         rows[name] = {"entry": entry, "instructions": sum(
             1 for _ in module.all_instructions()),
             "mem_waitcnt_edges": len(waits),
             "wait_sites": [f"{f}:{n}" for f, n in sites],
             "estimated_s": an.estimated_step_seconds,
+            "stall_cycles": dict(sorted(stalls.items())),
+            "shared_memory_ops": sum(
+                1 for i in module.all_instructions()
+                if i.opcode.startswith(("ld.shared", "st.shared"))),
             "analysis_s": seconds,
             "top_chain": [f"{link.opcode} {link.source}"
                           for link in an.chains[0].links] if an.chains
@@ -810,6 +841,11 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
               f"measured at R 4096 D 896 (eager call "
               f"{row['eager_call_ms']:.4f} ms); analysis "
               f"{row['analysis_s']:.2f} s; top chain {row['top_chain'][:3]}")
+        print(f"    {row['shared_memory_ops']} shared-memory loads and "
+              f"stores (memory operations at 0.05 of their bytes); stall "
+              f"cycles by class: "
+              + ", ".join(f"{k} {v:.0f}" for k, v in
+                          row["stall_cycles"].items()))
     return {"kernels": rows, "launches": counts, "ptx_seconds": ptx_s}
 
 
@@ -990,6 +1026,228 @@ def device_rates(torch):
             "matmul_ms": mm, "bf16_matmul_flops": 2 * n**3 / (mm / 1e3)}
 
 
+# -- phases 12, 13 and 14 -----------------------------------------------------
+
+def mlstm_flops(b: int, s: int, h: int, hd: int, chunk: int) -> float:
+    """Operations of the chunkwise mLSTM: per chunk of L steps, q k^T and
+    S v over the L (L + 1) / 2 causal pairs (4 hd a pair), and q C and the
+    update of C (2 L hd^2 each)."""
+    per_chunk = 2.0 * chunk * (chunk + 1) * hd + 4.0 * chunk * hd * hd
+    return b * h * (s // chunk) * per_chunk
+
+
+def check_mlstm(torch, ops, dt_name: str, *, b, s, h, hd, chunk,
+                timed=False):
+    """K5 against `mlstm_chunkwise_plain`, the step-by-step oracle, on the
+    same inputs (the reference kernel test's distribution: normal q, k /
+    sqrt(hd), v and log_i; log_f = log_sigmoid(normal + 2)).  f32: 1e-4
+    absolute + 1e-4 relative, the reference kernel test's tolerance (the
+    chunkwise form against the step-by-step one, summed in other orders).
+    bf16 inputs: both compute in f32 and round the result to bf16, so they
+    are held one bf16 step apart (`compare`)."""
+    import torch.nn.functional as F
+    dtype = getattr(torch, dt_name)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = normal(b, s, h, hd).to(dtype)
+    k = (normal(b, s, h, hd) / hd ** 0.5).to(dtype)
+    v = normal(b, s, h, hd).to(dtype)
+    log_i = normal(b, s, h)
+    log_f = F.logsigmoid(normal(b, s, h) + 2.0)
+    out = ops.mlstm_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
+    plain = ops.mlstm_chunkwise_plain(q, k, v, log_i, log_f)
+    torch.cuda.synchronize()
+    case = f"mlstm_chunkwise {dt_name} B{b} S{s} H{h} hd{hd} chunk{chunk}"
+    require(out.shape == q.shape and out.dtype == dtype,
+            f"{case}: out {out.dtype} {tuple(out.shape)}")
+    require(torch.isfinite(out.float()).all().item(), f"{case}: non-finite")
+    if dt_name == "float32":
+        diff = (out - plain).abs()
+        err = diff.max().item()
+        within = (diff - 1e-4 * plain.abs() - 1e-4).max().item() <= 0
+        tol = "0.0001 + 0.0001*|plain|"
+    else:
+        err, within, tol = compare(out, plain, dt_name, 0.0)
+    require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
+    row = {"case": case, "max_abs_err": err, "tol": tol}
+    if timed:
+        nbytes = 4 * q.nbytes + log_i.nbytes + log_f.nbytes  # q k v out
+        row["bound_ms"], row["bound_by"] = bound(
+            mlstm_flops(b, s, h, hd, chunk), nbytes, dt_name)
+        kernel = lambda: ops.mlstm_chunkwise(  # noqa: E731
+            q, k, v, log_i, log_f, chunk=chunk)
+        row["ms"] = time_ms(torch, kernel)
+        row["call_ms"] = call_ms(torch, kernel)
+        # a Python loop of S steps: a few samples of one call each
+        row["plain_ms"] = call_ms(torch, lambda: ops.mlstm_chunkwise_plain(
+            q, k, v, log_i, log_f), samples=3, reps=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
+          + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
+             f"plain_ms {row['plain_ms']:.2f}, library_ms none, bound_ms "
+             f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
+    return row
+
+
+def check_slstm(torch, ops, dt_name: str, *, b, s, d, timed=False):
+    """K6 against `slstm_scan_plain` on the same inputs (the reference
+    kernel test's distribution: normal xg, r at 0.1).  f32: 1e-5 absolute
+    + 1e-5 relative (the same f32 recurrence, the recurrent product summed
+    in another order; the card has read 2.4e-7).  bf16: one bf16 step
+    (`compare`).  Its time is of eager calls timed by CUDA events
+    (`call_ms`): the cooperative launch is not captured into a CUDA graph,
+    and at milliseconds a call the host's part is small."""
+    dtype = getattr(torch, dt_name)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xg = torch.randn((b, s, 4 * d), generator=gen, device="cuda").to(dtype)
+    r = (0.1 * torch.randn((d, 4 * d), generator=gen, device="cuda")).to(
+        dtype)
+    out = ops.slstm_scan(xg, r)
+    plain = ops.slstm_scan_plain(xg, r)
+    torch.cuda.synchronize()
+    case = f"slstm_scan {dt_name} B{b} S{s} D{d}"
+    require(tuple(out.shape) == (b, s, d) and out.dtype == dtype,
+            f"{case}: out {out.dtype} {tuple(out.shape)}")
+    require(torch.isfinite(out.float()).all().item(), f"{case}: non-finite")
+    if dt_name == "float32":
+        diff = (out - plain).abs()
+        err = diff.max().item()
+        within = (diff - 1e-5 * plain.abs() - 1e-5).max().item() <= 0
+        tol = "1e-05 + 1e-05*|plain|"
+    else:
+        err, within, tol = compare(out, plain, dt_name, 0.0)
+    require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
+    row = {"case": case, "max_abs_err": err, "tol": tol}
+    if timed:
+        nbytes = xg.nbytes + r.nbytes + out.nbytes
+        row["bound_ms"], row["bound_by"] = bound(8.0 * b * s * d * d,
+                                                 nbytes, dt_name)
+        row["ms"] = row["call_ms"] = call_ms(
+            torch, lambda: ops.slstm_scan(xg, r), samples=11)
+        row["plain_ms"] = call_ms(torch, lambda: ops.slstm_scan_plain(
+            xg, r), samples=3, reps=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
+          + (f", ms {row['ms']:.4f} (eager calls, events), plain_ms "
+             f"{row['plain_ms']:.2f}, library_ms none, bound_ms "
+             f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
+    return row
+
+
+def late_forget_gate(mlstm_chunkwise):
+    """A known fault for phase 13's limit: K5 fed `log_f` one step late
+    (each step decays by the previous step's forget gate)."""
+    def faulty(q, k, v, log_i, log_f, **kwargs):
+        return mlstm_chunkwise(q, k, v, log_i,
+                               log_f.roll(1, dims=1).contiguous(), **kwargs)
+    return faulty
+
+
+# Phase 13: |logits(kernel) - logits(plain)| at full xlstm-125m width in
+# f32, B 4 x S 1024, as a share of the largest logit.  The card has read
+# 4.9e-6 on a largest logit of 3.44 (1.4e-6 of it): the same f32 model, K5
+# chunked as the plain path and K6 stepping as it, summed in other orders;
+# K5 with `log_f` one step late moved the logits by 0.29, 1666x the limit.
+XLSTM_REL_TOL = 5e-5
+
+
+def run_xlstm_prefill(torch, ops, cfg, params, flags, make_prefill_step,
+                      init_params, xlstm_module, norms: int):
+    """xlstm-125m prefill, B 4 x S 1024 (8 chunks of 128 for K5).
+
+    The main path runs in the config's bf16 with the launch counts reset
+    just before it: exactly 9 K5 and 3 K6 launches, and the RMSNorms of
+    `norm_launches`.  bf16 kernel path against forced-plain path: within
+    2e-2 of the largest logit, phase 4's rule.  In f32 the kernel path is
+    held against the forced-plain path at XLSTM_REL_TOL of the largest
+    logit with top-1 agreement >= 0.99, and K5 fed `log_f` one step late
+    must fall outside that limit."""
+    b, s = 4, 1024
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel16 = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(tuple(kernel16.shape) == (b, s, cfg.vocab_size),
+            f"xlstm prefill logits shape {tuple(kernel16.shape)}")
+    require(torch.isfinite(kernel16).all().item(),
+            "xlstm prefill logits not finite")
+    kinds = list(cfg.block_kinds)
+    expect = {"flash_attention": 0, "rmsnorm_pipelined": norms,
+              "rmsnorm_baseline": 0, "ssm_scan": 0,
+              "mlstm_chunkwise": kinds.count("mlstm"),
+              "slstm_scan": kinds.count("slstm")}
+    require(counts == expect, f"xlstm prefill: launches {counts}, expected "
+            f"{expect}")
+    print(f"  {cfg.name} bf16 prefill B{b} S{s}: {seconds:.3f} s, launches "
+          f"{counts}")
+    profile = profile_prefill(torch, prefill, params, tokens)
+    with flags(force_plain=True):
+        plain16 = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    scale16 = plain16.abs().max().item()
+    err16 = (kernel16 - plain16).abs().max().item()
+    top16 = (kernel16.argmax(-1) == plain16.argmax(-1)).float().mean().item()
+    print(f"  bf16 logits max|kernel-plain| {err16:.4f} of max|logit| "
+          f"{scale16:.3f} (tol 0.02 x max|logit|), top-1 agreement "
+          f"{top16:.5f} (printed, not gated)")
+    require(err16 <= 2e-2 * scale16, f"xlstm bf16 prefill: kernel vs plain "
+            f"logits differ by {err16}")
+    del kernel16, plain16
+
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        0))
+    prefill32 = make_prefill_step(cfg32)
+    t0 = time.perf_counter()
+    kernel32 = prefill32(params32, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds32 = time.perf_counter() - t0
+    with flags(force_plain=True):
+        plain32 = prefill32(params32, {"tokens": tokens})
+    real = xlstm_module.mlstm_chunkwise
+    xlstm_module.mlstm_chunkwise = late_forget_gate(real)
+    try:
+        late32 = prefill32(params32, {"tokens": tokens})
+    finally:
+        xlstm_module.mlstm_chunkwise = real
+    torch.cuda.synchronize()
+    scale = plain32.abs().max().item()
+    err = (kernel32 - plain32).abs().max().item()
+    top1 = (kernel32.argmax(-1) == plain32.argmax(-1)).float().mean().item()
+    late_err = (late32 - plain32).abs().max().item()
+    late_top1 = (late32.argmax(-1) == plain32.argmax(-1)).float().mean(
+    ).item()
+    print(f"  {cfg.name} f32 prefill B{b} S{s}: {seconds32:.3f} s; logits "
+          f"max|kernel-plain| {err:.3e} of max|logit| {scale:.3f} (tol "
+          f"{XLSTM_REL_TOL:g} x max|logit|), top-1 agreement {top1:.5f}; K5 "
+          f"with log_f one step late: {late_err:.3e}, top-1 {late_top1:.5f}")
+    require(err <= XLSTM_REL_TOL * scale,
+            f"xlstm prefill: kernel vs plain logits differ by {err}")
+    require(top1 >= 0.99, f"xlstm prefill: top-1 agreement {top1} < 0.99")
+    require(late_err > XLSTM_REL_TOL * scale,
+            f"xlstm prefill: K5 with log_f one step late moves the f32 "
+            f"logits by {late_err}, within the tolerance: the check cannot "
+            f"see it")
+    return {"B": b, "S": s, "seconds": seconds, "launches": counts,
+            "profile": profile, "bf16_max_abs_err": err16,
+            "bf16_max_abs_logit": scale16, "bf16_top1": top16,
+            "f32_seconds": seconds32, "max_abs_err": err,
+            "max_abs_logit": scale, "top1": top1, "tol": XLSTM_REL_TOL,
+            "late_forget_gate": {"max": late_err, "top1": late_top1}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -1016,7 +1274,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
-    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.models import xlstm as xlstm_module
+    from repro_torch.models import (forward, init_params, layer_descriptors,
+                                    loss_fn)
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
 
@@ -1070,6 +1330,12 @@ def main(argv=None) -> int:
     rms = [check_rmsnorm(torch, ops, F, dt, r, d)
            for d in (896, 1600) for r in (8, 4096)
            for dt in ("bfloat16", "float32")]
+    # f32 rows of h2o-danube-3-4b (3840) and glm4-9b / phi3.5-moe (4096):
+    # K2 in a ring of 7 rows a stage, K3 by its two-pass kernel
+    wide_rms = [check_rmsnorm(torch, ops, F, "float32", r, d)
+                for d in (3840, 4096) for r in (8, 4096)]
+    wide_base = [check_rmsnorm_baseline(torch, ops, F, "float32", r, d)
+                 for d in (3840, 4096) for r in (8, 4096)]
     # the main path's shape first: hymba prefill, a/bx/c in f32 as the
     # model makes them
     scan = [check_ssm_scan(torch, ops, "float32", timed=True),
@@ -1090,7 +1356,7 @@ def main(argv=None) -> int:
     prefill = run_prefill(torch, ops, cfg, params, flags, make_prefill_step)
     print("phase 5: continuous-batching serve")
     serve = run_serve(torch, np, ops, cfg, params, ServeEngine, Request,
-                      gpu_name)
+                      gpu_name, norm_launches(cfg, layer_descriptors))
     serve["decode_profile"] = profile_decode(
         torch, np, cfg, params, ServeEngine, Request, ticks=20)
     del params
@@ -1110,7 +1376,7 @@ def main(argv=None) -> int:
                                   make_prefill_step, init_params)
     print(f"phase 7: continuous-batching serve, {HYBRID_ARCH}")
     hserve = run_serve(torch, np, ops, hcfg, hparams, ServeEngine, Request,
-                       gpu_name)
+                       gpu_name, norm_launches(hcfg, layer_descriptors))
     hserve["decode_profile"] = profile_decode(
         torch, np, hcfg, hparams, ServeEngine, Request, ticks=20)
     del hparams
@@ -1137,10 +1403,50 @@ def main(argv=None) -> int:
           f"{cfg.dtype}): plain vs kernel attention, captured and diagnosed")
     loop = run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
                         attention_module)
+    torch.cuda.empty_cache()
+
+    # phases 12, 13 and 14
+    print("phase 12: mlstm_chunkwise (K5) and slstm_scan (K6) against their "
+          "plain versions")
+    # the main path's shapes first: xlstm-125m's prefill in its bf16
+    mlstm = [check_mlstm(torch, ops, dt, b=4, s=1024, h=4, hd=192,
+                         chunk=128, timed=True)
+             for dt in ("bfloat16", "float32")]
+    mlstm += [check_mlstm(torch, ops, dt, b=2, s=s_, h=h_, hd=hd_,
+                          chunk=ch)
+              for s_, h_, hd_, ch in ((64, 2, 32, 16), (128, 1, 64, 32))
+              for dt in ("float32", "bfloat16")]
+    slstm = [check_slstm(torch, ops, dt, b=4, s=1024, d=768, timed=True)
+             for dt in ("bfloat16", "float32")]
+    slstm += [check_slstm(torch, ops, dt, b=2, s=s_, d=d_)
+              for s_, d_ in ((32, 64), (64, 128))
+              for dt in ("float32", "bfloat16")]
+    xcfg = get_config(XLSTM_ARCH)
+    xparams = init_params(xcfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(xparams))
+    kinds = list(xcfg.block_kinds)
+    print(f"phase 13: prefill, {XLSTM_ARCH} at full width ({xcfg.n_layers} "
+          f"layers: {kinds.count('mlstm')} mLSTM, {kinds.count('slstm')} "
+          f"sLSTM; d_model {xcfg.d_model}, {xcfg.n_heads} heads of "
+          f"{xcfg.head_dim_}, vocab {xcfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"parameters, {xcfg.dtype}, random weights from seed 0)")
+    xnorms = norm_launches(xcfg, layer_descriptors)
+    xprefill = run_xlstm_prefill(torch, ops, xcfg, xparams, flags,
+                                 make_prefill_step, init_params,
+                                 xlstm_module, xnorms)
+    print(f"phase 14: continuous-batching serve, {XLSTM_ARCH}")
+    xserve = run_serve(torch, np, ops, xcfg, xparams, ServeEngine, Request,
+                       gpu_name, xnorms)
+    xserve["decode_profile"] = profile_decode(
+        torch, np, xcfg, xparams, ServeEngine, Request, ticks=20)
+    del xparams
+    torch.cuda.empty_cache()
 
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
-    main_runs = (prefill, serve, hprefill, hserve, study, loop)
+    main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
+    main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
+                 xserve)
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1156,7 +1462,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:90",
          "launches": sum(r["launches"]["rmsnorm_pipelined"]
                          for r in main_runs),
-         "max_abs_err": max(r["max_abs_err"] for r in rms),
+         "max_abs_err": max(r["max_abs_err"] for r in rms + wide_rms),
          "ms": main_rms["ms"], "plain_ms": main_rms["plain_ms"],
          "bound_ms": main_rms["bound_ms"], "bound_by": main_rms["bound_by"],
          "library_ms": main_rms["library_ms"]},
@@ -1165,7 +1471,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:41",
          "launches": sum(r["launches"]["rmsnorm_baseline"]
                          for r in main_runs),
-         "max_abs_err": max(r["max_abs_err"] for r in base),
+         "max_abs_err": max(r["max_abs_err"] for r in base + wide_base),
          "ms": main_base["ms"], "plain_ms": main_base["plain_ms"],
          "bound_ms": main_base["bound_ms"],
          "bound_by": main_base["bound_by"],
@@ -1178,6 +1484,23 @@ def main(argv=None) -> int:
          "ms": main_scan["ms"], "plain_ms": main_scan["plain_ms"],
          "bound_ms": main_scan["bound_ms"],
          "bound_by": main_scan["bound_by"], "library_ms": None},
+        {"name": "mlstm_chunkwise", "route": "cuda", "status": "ok",
+         "source": "src/repro_torch/csrc/mlstm_scan.cu",
+         "replaces": "src/repro/kernels/mlstm_scan.py:73",
+         "launches": sum(r["launches"]["mlstm_chunkwise"]
+                         for r in main_runs),
+         "max_abs_err": max(r["max_abs_err"] for r in mlstm),
+         "ms": main_mlstm["ms"], "plain_ms": main_mlstm["plain_ms"],
+         "bound_ms": main_mlstm["bound_ms"],
+         "bound_by": main_mlstm["bound_by"], "library_ms": None},
+        {"name": "slstm_scan", "route": "cuda", "status": "ok",
+         "source": "src/repro_torch/csrc/slstm_scan.cu",
+         "replaces": "src/repro/kernels/slstm_scan.py:63",
+         "launches": sum(r["launches"]["slstm_scan"] for r in main_runs),
+         "max_abs_err": max(r["max_abs_err"] for r in slstm),
+         "ms": main_slstm["ms"], "plain_ms": main_slstm["plain_ms"],
+         "bound_ms": main_slstm["bound_ms"],
+         "bound_by": main_slstm["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main "
@@ -1187,10 +1510,14 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build_s, "flash_attention": fa, "rmsnorm": rms,
-        "ssm_scan": scan, "prefill": prefill, "serve": serve,
+        "ssm_scan": scan, "wide_rmsnorm": wide_rms,
+        "wide_rmsnorm_baseline": wide_base, "prefill": prefill,
+        "serve": serve,
         "hybrid_prefill": hprefill, "hybrid_serve": hserve,
         "ring_wrap": ring, "rmsnorm_baseline": base, "case_study": study,
-        "leo_loop": loop, "wall_seconds": time.perf_counter() - wall0,
+        "leo_loop": loop, "mlstm_chunkwise": mlstm, "slstm_scan": slstm,
+        "xlstm_prefill": xprefill, "xlstm_serve": xserve,
+        "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - wall0:.1f} s of wall time")

@@ -16,7 +16,10 @@ own code.
   instruction (an inlined helper's own line, not its call site), and
   `.file`.
 * Classes: `ld.global` -> MEMORY_LOAD, `st.global` -> MEMORY_STORE; each
-  `cp.async` copy -> MEMORY_LOAD; `cp.async.commit_group` -> SYNC_SET of
+  `cp.async` copy -> MEMORY_LOAD; `ld.shared` -> MEMORY_LOAD and
+  `st.shared` -> MEMORY_STORE, their bytes scaled by `SHARED_BYTE_SCALE`
+  (on-chip traffic, priced as the jaxpr front-end prices a Pallas kernel's
+  VMEM ref reads and writes); `cp.async.commit_group` -> SYNC_SET of
   kind WAITCNT on one counter per kernel, whose operands are the copies
   issued since the previous commit (the group it closes);
   `cp.async.wait_group N` -> SYNC_WAIT on that counter with `counter=N`;
@@ -43,6 +46,13 @@ from .isa import (Computation, Instruction, Module, OpClass, ShapeInfo,
 
 #: The counter every `cp.async` group of a kernel is counted on.
 CP_ASYNC_COUNTER = "cp.async.groups"
+
+#: Shared-memory bytes against device-memory bytes: on-chip traffic is
+#: about 20x faster, so its bytes are scaled before the shared hardware
+#: model prices them (a copy of `repro.core.jaxpr_frontend._VMEM_BYTE_SCALE`,
+#: the scale of a Pallas kernel's VMEM ref traffic; a test holds the two
+#: equal).
+SHARED_BYTE_SCALE = 0.05
 
 # Itanium-mangled template argument of each element type the kernels take.
 DTYPE_MANGLING = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
@@ -183,9 +193,9 @@ def _layout(items: List[_Item]) -> List[Tuple[_Item, str]]:
 
 
 def _classify(opcode: str) -> OpClass:
-    if opcode.startswith("ld.global"):
+    if opcode.startswith(("ld.global", "ld.shared")):
         return OpClass.MEMORY_LOAD
-    if opcode.startswith("st.global"):
+    if opcode.startswith(("st.global", "st.shared")):
         return OpClass.MEMORY_STORE
     if opcode.startswith("cp.async.commit_group"):
         return OpClass.SYNC_SET
@@ -268,10 +278,12 @@ def from_ptx(text: str, entry: str, name: Optional[str] = None) -> Module:
             source_line=item.loc[1],
             predicate_operands=(defs[item.guard],)
             if item.guard in defs else ())
+        scale = SHARED_BYTE_SCALE if ".shared" in opcode and \
+            not opcode.startswith("cp.async") else 1.0
         if cls is OpClass.MEMORY_LOAD:
-            instr.bytes_read = _access_bytes(opcode, item.args)
+            instr.bytes_read = scale * _access_bytes(opcode, item.args)
         elif cls is OpClass.MEMORY_STORE:
-            instr.bytes_written = _access_bytes(opcode, item.args)
+            instr.bytes_written = scale * _access_bytes(opcode, item.args)
         elif cls is OpClass.COMPUTE:
             special = any(f".{s}" in f".{opcode}" or opcode.startswith(s)
                           for s in _SPECIAL)

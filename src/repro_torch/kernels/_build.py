@@ -42,12 +42,19 @@ SIGNATURES = {
                                   _P],
     # dtype, x, scale, out, R, D, eps, stream
     "repro_rmsnorm_baseline_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32, _P],
-    # dtype, x, scale, out, R, D, eps, grid, stream
+    # dtype, x, scale, out, R, D, eps, rows a row block, grid, stream
     "repro_rmsnorm_pipelined_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32,
-                                    _I64, _P],
+                                    _I64, _I64, _P],
     # dtype (a, bx, c), a, bx, c, y, B, S, din, N, stream
     "repro_ssm_scan_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _P],
+    # dtype (q, k, v), q, k, v, log_i, log_f, out, B, S, H, hd, chunk,
+    # stream
+    "repro_mlstm_chunkwise_fwd": [_INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                  _I64, _I64, _I64, _P],
+    # dtype (xg, r), xg, r, out, hbuf, state, B, S, D, stream
+    "repro_slstm_scan_fwd": [_INT, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _P],
 }
 # the `dtype` argument of every entry point: repro::kFloat32 and
 # repro::kBFloat16 in csrc/common.cuh

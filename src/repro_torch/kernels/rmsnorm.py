@@ -7,13 +7,15 @@ two halves of the paper's baseline-vs-pipelined case study (section VI-D(b)):
 * `rmsnorm_pipelined` replaces the Pallas TPU kernel `repro/kernels/
   rmsnorm.py::rmsnorm_pipelined` (body `_rmsnorm_pipelined_kernel`), the
   double-buffered variant with one completion counter per buffer: a block
-  walks several row blocks of 8 rows through a 2-stage ring of `cp.async`
-  groups in shared memory, so row block i+1 is in flight while row block i
-  is reduced (f32, warp shuffles, one warp per row).
+  walks several row blocks of 8 rows (fewer when two blocks of 8 rows do
+  not fit in shared memory) through a 2-stage ring of `cp.async` groups in
+  shared memory, so row block i+1 is in flight while row block i is reduced
+  (f32, warp shuffles, one warp per row).
 * `rmsnorm_baseline` replaces `repro/kernels/rmsnorm.py::rmsnorm_baseline`
   (body `_rmsnorm_kernel`): one block per 8-row block, one warp per row,
-  each row loaded straight from device memory into registers, no `cp.async`
-  and no ring.
+  each row loaded straight from device memory into registers (a row wider
+  than 2048 values by a two-pass kernel that reads it twice), no
+  `cp.async` and no ring.
 
 Bound on the H100 for both: bytes, `(2*R*D + D)*itemsize` over 3.35 TB/s.
 Each kernel reads each input byte once and writes each output byte once.
@@ -32,8 +34,7 @@ import torch
 
 from . import _build
 
-ROWS_PER_BLOCK = 8  # kRowsPerBlock in csrc/rmsnorm.cu
-BASELINE_MAX_D = 32 * 64  # the baseline keeps a row in 64 registers a lane
+ROWS_PER_BLOCK = 8  # kRowsPerBlock in csrc/rmsnorm.cu: the most a row block
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
@@ -64,6 +65,13 @@ def _check_cuda(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def ring_rows(d: int, itemsize: int) -> int:
+    """Rows of one row block of the pipelined kernel: 8, or as many as
+    let two blocks (the ring's two stages) fit in shared memory; 0 when not
+    even one row of each does."""
+    return min(ROWS_PER_BLOCK, _build.MAX_SMEM // (2 * d * itemsize))
+
+
 def check_rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
                             eps: float = 1e-5) -> None:
     _check_cuda("rmsnorm_pipelined", x, scale)
@@ -71,18 +79,15 @@ def check_rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
     if row_bytes % 16:
         raise ValueError(f"rmsnorm_pipelined: rows of {row_bytes} bytes; "
                          f"cp.async needs 16-byte multiples")
-    if 2 * ROWS_PER_BLOCK * row_bytes > _build.MAX_SMEM:
+    if ring_rows(x.shape[1], x.element_size()) < 1:
         raise ValueError(f"rmsnorm_pipelined: D={x.shape[1]} too wide for "
-                         f"the shared-memory ring")
+                         f"the shared-memory ring (two rows of "
+                         f"{row_bytes} bytes above {_build.MAX_SMEM})")
 
 
 def check_rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
                            eps: float = 1e-5) -> None:
     _check_cuda("rmsnorm_baseline", x, scale)
-    if x.shape[1] > BASELINE_MAX_D:
-        raise ValueError(f"rmsnorm_baseline: D={x.shape[1]} above "
-                         f"{BASELINE_MAX_D}, the row a warp keeps in "
-                         f"registers")
 
 
 def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
@@ -96,14 +101,15 @@ def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"rmsnorm_pipelined: x at {x.data_ptr():#x}; "
                          f"cp.async needs 16-byte alignment")
     r, d = x.shape
-    n_blocks = -(-r // ROWS_PER_BLOCK)
+    rows = ring_rows(d, x.element_size())
+    n_blocks = -(-r // rows)
     # one block per SM, each walking several row blocks: what it walks is
     # what the ring overlaps
     grid = min(n_blocks, _sm_count(x.device.index))
     out = torch.empty_like(x)
     err = lib.repro_rmsnorm_pipelined_fwd(
         _build.DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), r, d, eps, grid,
+        out.data_ptr(), r, d, eps, rows, grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rmsnorm_pipelined")
     rmsnorm_pipelined.launches += 1
@@ -112,8 +118,7 @@ def rmsnorm_pipelined(x: torch.Tensor, scale: torch.Tensor, *,
 
 def rmsnorm_baseline(x: torch.Tensor, scale: torch.Tensor, *,
                      eps: float = 1e-5) -> torch.Tensor:
-    """x (R, D) with D <= 2048; scale (D,).  Returns (R, D) in x's
-    dtype."""
+    """x (R, D); scale (D,).  Returns (R, D) in x's dtype."""
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps=eps)
     lib = _build.library()

@@ -10,6 +10,8 @@ enter by teacher-forced decode of their tokens (prefill-by-decode).
   python -m repro_torch.launch.serve                     # qwen2-0.5b, card
   python -m repro_torch.launch.serve --arch hymba-1.5b   # full width, card
   python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch xlstm-125m   # mLSTM + sLSTM
+  python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""PyTorch model zoo of the port: dense GQA and hybrid attention + SSM
-transformers, full or sliding-window attention."""
+"""PyTorch model zoo of the port: dense GQA, hybrid attention + SSM and
+xLSTM (mLSTM + sLSTM) models, full or sliding-window attention."""
 from .convert import decode_state_from_numpy, params_from_numpy
 from .transformer import (
     decode_step,

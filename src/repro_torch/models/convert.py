@@ -36,7 +36,8 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's param tree (numpy leaves) as the port's params, each
     leaf in the dtype the reference gives it: the config's dtype for most,
     f32 for those the reference keeps in f32 whatever the config says (the
-    SSM's `w_dt`, `a_log` and `d_skip`)."""
+    SSM's `w_dt`, `a_log` and `d_skip`, the mLSTM's `w_if`).  Blocks
+    without an FFN (xLSTM) carry no `ln2`/`ffn` leaves, as there."""
     table = tree["embed"]["table"]
     if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embedding {tuple(table.shape)} does not match "
@@ -45,5 +46,6 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
 
 
 def decode_state_from_numpy(tree, device="cuda"):
-    """The reference's decode state (numpy leaves) as the port's."""
+    """The reference's decode state (numpy leaves) as the port's: KV
+    caches, SSM and xLSTM recurrent states, each leaf in its own dtype."""
     return _tree(tree, device)

@@ -13,13 +13,19 @@ The port's counterpart of `repro.models.flags`.  Two switches:
                    attention accumulator traffic.
   force_plain    : False — every CUDA tensor goes through the hand-written
                            kernels (flash attention under
-                           attention_impl="kernel", the selective scan in
-                           prefill, RMSNorm at every norm);
+                           attention_impl="kernel", the selective scan and
+                           both xLSTM recurrences in prefill, RMSNorm at
+                           every norm);
                    True  — the models take their plain PyTorch paths on the
                            card too, whatever attention_impl says.  It exists
                            so `chip_smoke.py` can hold the kernel path against
                            the plain one on the same inputs; nothing on the
                            serving path sets it.
+
+The reference's `mlstm_pallas` marks both xLSTM mixers' regions, the sLSTM
+scan's too (`repro/models/xlstm.py:208`); here both mixers take their
+kernels on CUDA tensors unless `force_plain` says otherwise, so the one
+switch governs both, as there.
 """
 from __future__ import annotations
 

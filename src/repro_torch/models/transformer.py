@@ -1,12 +1,13 @@
-"""Model assembly (the port of `repro.models.transformer`: dense GQA and
-hybrid attention + SSM blocks).
+"""Model assembly (the port of `repro.models.transformer`: dense GQA,
+hybrid attention + SSM, and xLSTM blocks).
 
 Layers are described by (mixer, ffn) descriptors, run-length encoded into
 groups whose params carry a leading `reps` axis, exactly as in the reference,
 so a param tree converts leaf for leaf.  A Python loop over the layers of a
-group stands in for `lax.scan`.  The port runs the ("attn", "mlp") and
-("hybrid", "mlp") descriptors, with full or sliding-window attention; the
-other mixers and FFNs raise `NotImplementedError`.
+group stands in for `lax.scan`.  The port runs the ("attn", "mlp"),
+("hybrid", "mlp"), ("mlstm", "none") and ("slstm", "none") descriptors,
+with full or sliding-window attention; the other mixers and FFNs raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
 from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import embed, mlp, rmsnorm, unembed
 
 Params = Dict
 
-_PORTED = (("attn", "mlp"), ("hybrid", "mlp"))
+_PORTED = (("attn", "mlp"), ("hybrid", "mlp"), ("mlstm", "none"),
+           ("slstm", "none"))
 
 
 # -- static layer plan -------------------------------------------------------
@@ -65,8 +68,10 @@ def _ported_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, str], int]]:
             raise NotImplementedError(
                 f"layer {desc} of {cfg.name} is not ported yet; the port "
                 f"runs {_PORTED} blocks")
-    if cfg.attention not in ("full", "swa") or cfg.mlp_kind != "swiglu" or \
-            cfg.frontend != "none":
+    attends = any(mixer in ("attn", "hybrid") for (mixer, _), _ in groups)
+    mlps = any(ffn == "mlp" for (_, ffn), _ in groups)
+    if (attends and cfg.attention not in ("full", "swa")) or \
+            (mlps and cfg.mlp_kind != "swiglu") or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name} (attention={cfg.attention!r}, mlp={cfg.mlp_kind!r}, "
             f"frontend={cfg.frontend!r}) is not ported yet; the port runs "
@@ -84,10 +89,12 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     """Fresh weights with the reference's shapes, dtypes and init scales
-    (`transformer.py::init_params`: normal 0.02 for projections, 1.0 for the
-    embedding and the SSM's `w_dt`, zero biases, unit norms; `ssm.py::
-    init_ssm`: `a_log = log(1..N)`, unit `d_skip`, those three leaves in
-    f32).  The numbers differ from `jax.random`'s; parity tests convert the
+    (`transformer.py::_init_block`: `ln1` and the mixer's leaves, `ln2` and
+    the FFN's only where the block has an FFN; normal 0.02 for projections,
+    1.0 for the embedding and the SSM's `w_dt`, zero biases, unit norms;
+    `ssm.py::init_ssm`: `a_log = log(1..N)`, unit `d_skip`, those three
+    leaves in f32; `xlstm.py`: `w_if` in f32, `r_gates` at 0.01).  The
+    numbers differ from `jax.random`'s; parity tests convert the
     reference's own weights with `convert.params_from_numpy` instead."""
     dtype = torch_dtype(cfg)
     if generator is None:
@@ -106,21 +113,31 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     params: Params = {"embed": {"table": normal((cfg.vocab_size, d), 1.0)}}
     groups = []
-    for desc, reps in _ported_groups(cfg):
-        attn = {"wq": normal((reps, d, h * hd), 0.02),
-                "wk": normal((reps, d, kv * hd), 0.02),
-                "wv": normal((reps, d, kv * hd), 0.02),
-                "wo": normal((reps, h * hd, d), 0.02)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros((reps, h * hd)), bk=zeros((reps, kv * hd)),
-                        bv=zeros((reps, kv * hd)))
-        ffn = {"w_gate": normal((reps, d, cfg.d_ff), 0.02),
-               "w_up": normal((reps, d, cfg.d_ff), 0.02),
-               "w_down": normal((reps, cfg.d_ff, d), 0.02)}
-        block = {"ln1": ones((reps, d)), "attn": attn}
-        if desc[0] == "hybrid":
+    for (mixer, ffn), reps in _ported_groups(cfg):
+        block = {"ln1": ones((reps, d))}
+        if mixer in ("attn", "hybrid"):
+            attn = {"wq": normal((reps, d, h * hd), 0.02),
+                    "wk": normal((reps, d, kv * hd), 0.02),
+                    "wv": normal((reps, d, kv * hd), 0.02),
+                    "wo": normal((reps, h * hd, d), 0.02)}
+            if cfg.qkv_bias:
+                attn.update(bq=zeros((reps, h * hd)),
+                            bk=zeros((reps, kv * hd)),
+                            bv=zeros((reps, kv * hd)))
+            block["attn"] = attn
+        if mixer == "hybrid":
             block["ssm"] = ssm_mod.init_ssm(cfg, reps, normal, dtype, device)
-        block.update(ln2=ones((reps, d)), ffn=ffn)
+        elif mixer == "mlstm":
+            block["mlstm"] = xlstm_mod.init_mlstm(cfg, reps, normal, dtype,
+                                                  device)
+        elif mixer == "slstm":
+            block["slstm"] = xlstm_mod.init_slstm(cfg, reps, normal, dtype,
+                                                  device)
+        if ffn != "none":
+            block["ln2"] = ones((reps, d))
+            block["ffn"] = {"w_gate": normal((reps, d, cfg.d_ff), 0.02),
+                            "w_up": normal((reps, d, cfg.d_ff), 0.02),
+                            "w_down": normal((reps, cfg.d_ff, d), 0.02)}
         groups.append(block)
     params["groups"] = groups
     params["final_norm"] = ones((d,))
@@ -146,6 +163,19 @@ def _logits(params: Params, x: torch.Tensor,
     return logits.float()
 
 
+def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
+           positions: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The mixer of one full-sequence block."""
+    if mixer == "mlstm":
+        return xlstm_mod.mlstm_forward(p["mlstm"], h, cfg)
+    if mixer == "slstm":
+        return xlstm_mod.slstm_forward(p["slstm"], h, cfg)
+    y = attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
+    if mixer == "hybrid":
+        y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], h, cfg))
+    return y
+
+
 # -- forward -----------------------------------------------------------------
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -155,17 +185,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     slice."""
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    for ((mixer, _), reps), stacked in zip(_ported_groups(cfg),
-                                           params["groups"]):
+    for ((mixer, ffn), reps), stacked in zip(_ported_groups(cfg),
+                                             params["groups"]):
         for i in range(reps):
             p = _layer(stacked, i)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            y = attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
-            if mixer == "hybrid":
-                y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], h, cfg))
-            x = x + y
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h, p["ffn"])
+            x = x + _mixer(p, h, mixer, cfg, positions, chunk)
+            if ffn != "none":
+                h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+                x = x + mlp(h, p["ffn"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
@@ -196,13 +224,20 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> Params:
     """Per-group layer-stacked decode state: KV caches {"kv": {"k", "v"}},
     each (reps, B, S, Kv, hd) with S = max_len (a ring of min(max_len,
-    window) under SWA), and for hybrid blocks the SSM state {"ssm": {"h"}},
-    (reps, B, din, N) f32."""
+    window) under SWA); for hybrid blocks also the SSM state {"ssm":
+    {"h"}}, (reps, B, din, N) f32; for xLSTM blocks only their recurrent
+    state, {"mlstm": {"c", "n", "m"}} or {"slstm": {"c", "n", "h", "m"}},
+    f32, with `m` at -1e30."""
     dtype = torch_dtype(cfg)
     groups = []
     for (mixer, _), reps in _ported_groups(cfg):
-        one = {"kv": attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
-                                              device)}
+        if mixer == "mlstm":
+            one = {"mlstm": xlstm_mod.init_mlstm_state(cfg, batch, device)}
+        elif mixer == "slstm":
+            one = {"slstm": xlstm_mod.init_slstm_state(cfg, batch, device)}
+        else:
+            one = {"kv": attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
+                                                  device)}
         if mixer == "hybrid":
             one["ssm"] = ssm_mod.init_ssm_state(cfg, batch, device)
         groups.append({kind: {name: buf.expand(reps, *buf.shape).contiguous()
@@ -222,20 +257,34 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
     pos = torch.as_tensor(pos, device=token.device).long().expand(
         token.shape[0])
     x = embed(token, params["embed"], dtype)
-    for ((mixer, _), reps), stacked_p, stack in zip(
+    for ((mixer, ffn), reps), stacked_p, stack in zip(
             _ported_groups(cfg), params["groups"], state["groups"]):
         for i in range(reps):
             p = _layer(stacked_p, i)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
-                                     layer_idx=i)
+            if mixer in ("mlstm", "slstm"):
+                # recurrent states are KBs: sliced out, written back whole
+                step = xlstm_mod.mlstm_decode if mixer == "mlstm" else \
+                    xlstm_mod.slstm_decode
+                y, new = step(p[mixer], h, _layer(stack[mixer], i), cfg)
+                _write_layer(stack[mixer], new, i)
+            else:
+                y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
+                                         layer_idx=i)
             if mixer == "hybrid":
-                # the SSM state is KBs: sliced out and written back whole
                 ys, new = ssm_mod.ssm_decode(p["ssm"], h,
                                              _layer(stack["ssm"], i), cfg)
-                stack["ssm"]["h"][i] = new["h"]
+                _write_layer(stack["ssm"], new, i)
                 y = 0.5 * (y + ys)
             x = x + y
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h, p["ffn"])
+            if ffn != "none":
+                h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+                x = x + mlp(h, p["ffn"])
     return _logits(params, x, cfg), state
+
+
+def _write_layer(stack: Params, new: Params, i: int) -> None:
+    """Write one layer's state `new` into layer `i` of the stacked `stack`,
+    in place."""
+    for name, value in new.items():
+        stack[name][i] = value

@@ -193,10 +193,17 @@ KERNEL_CASES = {
                           [(8, 45), (45,)]),  # rows of 180 bytes
     "rmsnorm_baseline": (ops.rmsnorm_baseline, ops.rmsnorm_plain,
                          [(8, 896), (896,)],
-                         [(8, 2056), (2056,)]),  # above 64 values a lane
+                         [(8, 896), (895,)]),  # scale of another width
     "ssm_scan": (ops.ssm_scan, ops.ssm_scan_plain,
                  [(2, 16, 32, 16), (2, 16, 32, 16), (2, 16, 16)],
                  [(2, 16, 32, 12), (2, 16, 32, 12), (2, 16, 12)]),  # N 12
+    "mlstm_chunkwise": (ops.mlstm_chunkwise, ops.mlstm_chunkwise_plain,
+                        [(1, 64, 2, 16)] * 3 + [(1, 64, 2)] * 2,
+                        # chunk 64 does not divide S 96
+                        [(1, 96, 2, 16)] * 3 + [(1, 96, 2)] * 2),
+    "slstm_scan": (ops.slstm_scan, ops.slstm_scan_plain,
+                   [(2, 16, 64), (16, 64)],
+                   [(2, 16, 64), (16, 60)]),  # r is not (D, 4D)
 }
 
 

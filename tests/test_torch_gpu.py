@@ -7,12 +7,15 @@ and the port only, so it also runs where JAX is not installed:
   python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances, element by element: f32 2e-5 (flash attention) / 1e-5
-(RMSNorm), the same f32 arithmetic in another order; bf16 1e-4 + 2^-7 of the
-value, one bf16 step apart after each side rounds its f32 result.  The
-selective scan returns f32 whatever its input type and computes in f32, so
-every case is held to 1e-4 absolute and relative, the tolerance of
-`tests/test_kernels.py::TestSsmKernel` (the recurrence fused into one
-multiply-add, the readout summed in another order).
+(RMSNorm, the sLSTM scan), the same f32 arithmetic in another order; bf16
+1e-4 + 2^-7 of the value, one bf16 step apart after each side rounds its
+f32 result.  The selective scan returns f32 whatever its input type and
+computes in f32, so every case is held to 1e-4 absolute and relative, the
+tolerance of `tests/test_kernels.py::TestSsmKernel` (the recurrence fused
+into one multiply-add, the readout summed in another order).  The chunkwise
+mLSTM in f32 is held to 1e-4 absolute and relative, the tolerance of
+`tests/test_kernels.py::TestMlstmKernel` (the chunkwise form against the
+step-by-step oracle).
 """
 import dataclasses
 
@@ -71,7 +74,9 @@ def test_flash_attention(s, h, kv, hd, window, block_q, block_k, dtype):
            TOL[dtype])
 
 
-@pytest.mark.parametrize("d", [896, 1600])  # qwen2-0.5b, hymba-1.5b
+# qwen2-0.5b, hymba-1.5b, h2o-danube-3-4b, glm4-9b: in f32 the last two
+# take a ring of 7 rows a stage
+@pytest.mark.parametrize("d", [896, 1600, 3840, 4096])
 @pytest.mark.parametrize("r", [8, 13, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm(r, d, dtype):
@@ -85,7 +90,8 @@ def test_rmsnorm(r, d, dtype):
            BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
 
 
-@pytest.mark.parametrize("d", [512, 896, 1600])
+# above 2048 values a row, the two-pass kernel
+@pytest.mark.parametrize("d", [512, 896, 1600, 3840, 4096])
 @pytest.mark.parametrize("r", [8, 13, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_baseline(r, d, dtype):
@@ -107,9 +113,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # rows of 90 bytes: no 16-byte copies
         ops.rmsnorm_pipelined(torch.ones((8, 45), device=dev),
                               torch.ones(45, device=dev))
-    with pytest.raises(ValueError):  # a row longer than 64 values a lane
+    with pytest.raises(ValueError):  # two f32 rows above 227 KB: no ring
+        ops.rmsnorm_pipelined(torch.ones((8, 29184), device=dev),
+                              torch.ones(29184, device=dev))
+    with pytest.raises(ValueError):  # scale of another width
         ops.rmsnorm_baseline(torch.ones((8, 2056), device=dev),
-                             torch.ones(2056, device=dev))
+                             torch.ones(2048, device=dev))
     q = torch.ones((1, 64, 4, 96), device=dev)
     with pytest.raises(ValueError):  # head_dim 96 is not instantiated
         ops.flash_attention(q, q, q)
@@ -120,6 +129,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # block_k 230 fits shared memory at hd 120 but not at the 128 it runs at
     with pytest.raises(ValueError, match="head dim 128"):
         ops.flash_attention(q, q, q, block_k=230)
+    q = torch.ones((2, 96, 2, 32), device=dev)
+    g = torch.zeros((2, 96, 2), device=dev)
+    before = ops.mlstm_chunkwise.launches
+    with pytest.raises(ValueError):  # chunk 64 does not divide S 96
+        ops.mlstm_chunkwise(q, q, q, g, g)
+    long_q = torch.ones((1, 256, 1, 32), device=dev)
+    long_g = torch.zeros((1, 256, 1), device=dev)
+    with pytest.raises(ValueError):  # a chunk above the kernel's 128
+        ops.mlstm_chunkwise(long_q, long_q, long_q, long_g, long_g,
+                            chunk=256)
+    with pytest.raises(ValueError):  # gates in bf16
+        ops.mlstm_chunkwise(q, q, q, g.bfloat16(), g.bfloat16(), chunk=32)
+    with pytest.raises(ValueError):  # v of another dtype
+        ops.mlstm_chunkwise(q, q, q.bfloat16(), g, g, chunk=32)
+    with pytest.raises(ValueError):  # not contiguous
+        ops.mlstm_chunkwise(q.transpose(1, 2), q, q, g, g, chunk=32)
+    assert ops.mlstm_chunkwise.launches == before
+    xg = torch.ones((2, 16, 256), device=dev)
+    before = ops.slstm_scan.launches
+    with pytest.raises(ValueError):  # r is not (D, 4D)
+        ops.slstm_scan(xg, torch.ones((64, 64), device=dev))
+    with pytest.raises(ValueError):  # r of another dtype than xg
+        ops.slstm_scan(xg, torch.ones((64, 256), device=dev).bfloat16())
+    with pytest.raises(ValueError):  # r on the CPU
+        ops.slstm_scan(xg, torch.ones((64, 256)))
+    with pytest.raises(ValueError):  # not contiguous
+        ops.slstm_scan(xg, torch.ones((256, 64), device=dev).t())
+    assert ops.slstm_scan.launches == before
 
 
 def test_prefill_kernel_path_matches_plain_path():
@@ -131,7 +168,8 @@ def test_prefill_kernel_path_matches_plain_path():
     logits, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
-                                   "rmsnorm_baseline": 0, "ssm_scan": 0}
+                                   "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "mlstm_chunkwise": 0, "slstm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
@@ -246,8 +284,83 @@ def test_hymba_prefill_kernel_path_matches_plain_path():
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
                                    "rmsnorm_baseline": 0,
-                                   "ssm_scan": cfg.n_layers}
+                                   "ssm_scan": cfg.n_layers,
+                                   "mlstm_chunkwise": 0, "slstm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts()["ssm_scan"] == cfg.n_layers
+    _close(logits, plain, (1e-4, 1e-4))
+
+
+def _mlstm_inputs(b, s, h, hd, dtype, device):
+    """The reference kernel test's distribution: normal q, k / sqrt(hd), v
+    and log_i; log_f = log_sigmoid(normal + 2); gates f32."""
+    gen = torch.Generator(device=device).manual_seed(14)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    dt = getattr(torch, dtype)
+    q = normal(b, s, h, hd).to(dt)
+    k = (normal(b, s, h, hd) / hd ** 0.5).to(dt)
+    v = normal(b, s, h, hd).to(dt)
+    return q, k, v, normal(b, s, h), \
+        torch.nn.functional.logsigmoid(normal(b, s, h) + 2.0)
+
+
+@pytest.mark.parametrize("b,s,h,hd,chunk", [
+    (2, 64, 2, 32, 16), (2, 128, 1, 64, 32),   # the reference grid
+    (4, 1024, 4, 192, 128),                    # xlstm-125m's prefill
+    (1, 200, 3, 48, 40),                       # no multiple of 4 or of 32
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunkwise(b, s, h, hd, chunk, dtype):
+    dev = _cuda()
+    args = _mlstm_inputs(b, s, h, hd, dtype, dev)
+    before = ops.mlstm_chunkwise.launches
+    out = ops.mlstm_chunkwise(*args, chunk=chunk)
+    assert ops.mlstm_chunkwise.launches == before + 1
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    _close(out, ops.mlstm_chunkwise_plain(*args),
+           BF16_TOL if dtype == "bfloat16" else (1e-4, 1e-4))
+
+
+@pytest.mark.parametrize("b,s,d", [
+    (2, 32, 64), (2, 64, 128),   # the reference grid
+    (4, 1024, 768),              # xlstm-125m's prefill
+    (3, 50, 100),                # D no multiple of the SMs' share
+    (11, 20, 64),                # more batch rows than one staged tile
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_scan(b, s, d, dtype):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    dt = getattr(torch, dtype)
+    xg = torch.randn((b, s, 4 * d), generator=gen, device=dev).to(dt)
+    r = (0.1 * torch.randn((d, 4 * d), generator=gen, device=dev)).to(dt)
+    before = ops.slstm_scan.launches
+    out = ops.slstm_scan(xg, r)
+    assert ops.slstm_scan.launches == before + 1
+    assert out.dtype == dt and out.shape == (b, s, d)
+    _close(out, ops.slstm_scan_plain(xg, r),
+           BF16_TOL if dtype == "bfloat16" else (1e-5, 1e-5))
+
+
+def test_xlstm_prefill_kernel_path_matches_plain_path():
+    """xlstm-125m smoke in f32 on the card: each mLSTM layer through K5
+    (one chunk of 128 here: S 256 is two), each sLSTM layer through K6,
+    against the forced-plain path."""
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("xlstm-125m")),
+                              dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=dev)
+    ops.reset_launch_counts()
+    logits, _ = tt.forward(params, cfg, tokens=tokens)
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "rmsnorm_pipelined": 8,
+                                   "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "mlstm_chunkwise": 3, "slstm_scan": 1}
+    with flags(force_plain=True):
+        plain, _ = tt.forward(params, cfg, tokens=tokens)
+    assert ops.launch_counts()["mlstm_chunkwise"] == 3
     _close(logits, plain, (1e-4, 1e-4))

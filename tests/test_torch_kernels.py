@@ -14,11 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.rmsnorm import (check_rmsnorm_baseline,
+                                         check_rmsnorm_pipelined, ring_rows)
 from repro_torch.models.attention import chunked_attention as t_chunked
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -106,3 +109,27 @@ class TestRmsnormPlain:
         _close(out, jops.rmsnorm_op(jx, jscale, block_rows=8,
                                     interpret=True), tol)
         _close(out, jref.rmsnorm_ref(jx, jscale), tol)
+
+    @pytest.mark.parametrize("d", [3840, 4096])
+    def test_checks_take_wide_f32_rows(self, d):
+        """f32 rows of h2o-danube-3-4b (3840) and glm4-9b (4096), which both
+        CUDA wrappers refused for width before: the pipelined ring now takes
+        7 rows a stage instead of 8, and the baseline reads the row in two
+        passes.  Checked on fake CUDA tensors: no card is needed."""
+        with FakeTensorMode():
+            x = torch.empty((4096, d), device="cuda")
+            scale = torch.empty((d,), device="cuda")
+            check_rmsnorm_pipelined(x, scale)
+            check_rmsnorm_baseline(x, scale)
+        assert ring_rows(d, 4) == 7
+        assert ring_rows(d, 2) == 8
+
+    def test_pipelined_check_refuses_a_row_two_of_which_do_not_fit(self):
+        """f32 D 29184: two rows are 233,472 bytes, above the 232,448 a
+        block may use, so not even a ring of one row a stage fits."""
+        with FakeTensorMode():
+            x = torch.empty((8, 29184), device="cuda")
+            scale = torch.empty((29184,), device="cuda")
+            with pytest.raises(ValueError, match="too wide"):
+                check_rmsnorm_pipelined(x, scale)
+            check_rmsnorm_baseline(x, scale)

@@ -5,9 +5,11 @@ iteration, `wait_group 1` for the older) and a kernel of plain
 `ld.global` loads.  No nvcc is needed."""
 import pytest
 
+from repro.core.jaxpr_frontend import _VMEM_BYTE_SCALE
 from repro_torch.core import (EdgeKind, OpClass, SyncKind, analyze_module,
                               from_ptx, ptx_entries)
-from repro_torch.core.ptx_frontend import CP_ASYNC_COUNTER, find_entry
+from repro_torch.core.ptx_frontend import (CP_ASYNC_COUNTER,
+                                           SHARED_BYTE_SCALE, find_entry)
 
 RING = """
 .version 8.7
@@ -108,6 +110,14 @@ PLAIN = """
 """
 
 
+# RING with the reduced value written back to shared memory (as a vector)
+# before it goes out: `ld.shared` after the wait, then `st.shared`
+SHARED = RING.replace(
+    "\tmul.f32 \t%f2, %f1, %f1;\n",
+    "\tmul.f32 \t%f2, %f1, %f1;\n"
+    "\tst.shared.v2.f32 \t[%r2], {%f2, %f1};\n")
+
+
 def _module(text):
     (entry,) = ptx_entries(text)
     return from_ptx(text, entry)
@@ -193,3 +203,34 @@ def test_find_entry_by_kernel_and_type():
     assert find_entry(text, "ring", "float32") == "_Z4ringIfEvPKT_PS0_l"
     with pytest.raises(KeyError):
         find_entry(text, "ring", "bfloat16")
+
+
+def test_shared_memory_traffic_is_memory_at_the_reference_scale():
+    """`ld.shared` (after the ring's `cp.async.wait_group`) and
+    `st.shared` are a load and a store of on-chip memory, priced at the
+    reference's VMEM byte scale, not arithmetic; the ring's waits still
+    link to the commits before them."""
+    assert "st.shared.v2.f32" in SHARED
+    module = _module(SHARED)
+    instrs = list(module.all_instructions())
+    (load,) = [i for i in instrs if i.opcode == "ld.shared.f32"][:1]
+    (store,) = [i for i in instrs if i.opcode == "st.shared.v2.f32"][:1]
+    assert load.op_class is OpClass.MEMORY_LOAD
+    assert load.bytes_read == pytest.approx(4 * SHARED_BYTE_SCALE)
+    assert load.flops == 0
+    assert store.op_class is OpClass.MEMORY_STORE
+    assert store.bytes_written == pytest.approx(8 * SHARED_BYTE_SCALE)
+    copies = [i for i in instrs if i.opcode.startswith("cp.async.cg")]
+    assert all(i.bytes_read == 16 for i in copies)  # device memory: unscaled
+    wait = next(i for i in instrs if i.opcode == "cp.async.wait_group")
+    assert instrs.index(wait) < instrs.index(load)
+    an = analyze_module(module, "nvidia_h100_sxm")
+    waits = [e for e in an.graph.edges if e.kind is EdgeKind.MEM_WAITCNT]
+    assert {module.find(e.consumer).opcode for e in waits} == \
+        {"cp.async.wait_group"}
+    assert len({e.consumer for e in waits}) == 2
+
+
+def test_shared_byte_scale_equals_the_reference():
+    """The port keeps its own copy of the jaxpr front-end's VMEM scale."""
+    assert SHARED_BYTE_SCALE == _VMEM_BYTE_SCALE

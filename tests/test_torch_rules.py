@@ -56,6 +56,13 @@ assert forward(params, cfg, torch.tensor([[1, 2, 3]]))[0].shape == \
 engine = ServeEngine(cfg, params, 2, 16, device="cpu")
 engine.submit(Request(0, [5, 6], 2))
 engine.tick()
+cfg = smoke_config(get_config("xlstm-125m"))
+params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+assert forward(params, cfg, torch.tensor([[1, 2, 3]]))[0].shape == \
+    (1, 3, cfg.vocab_size)
+engine = ServeEngine(cfg, params, 2, 16, device="cpu")
+engine.submit(Request(0, [5, 6], 2))
+engine.tick()
 from repro_torch.core import analyze_module, capture
 from repro_torch.models import loss_fn
 cfg = smoke_config(get_config("qwen2-0.5b"))
@@ -133,7 +140,8 @@ def test_build_without_nvcc_raises(no_nvcc):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined",
-                                    "rmsnorm_baseline", "ssm_scan"])
+                                    "rmsnorm_baseline", "ssm_scan",
+                                    "mlstm_chunkwise", "slstm_scan"])
 def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     from repro_torch.kernels import ops
     fn = ops.KERNELS[kernel]
@@ -143,6 +151,12 @@ def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     elif kernel == "ssm_scan":
         args = [torch.empty((2, 64, 256, 16), device="meta")] * 2 + \
             [torch.empty((2, 64, 16), device="meta")]
+    elif kernel == "mlstm_chunkwise":
+        args = [torch.empty((2, 128, 4, 192), device="meta")] * 3 + \
+            [torch.empty((2, 128, 4), device="meta")] * 2
+    elif kernel == "slstm_scan":
+        args = [torch.empty((2, 64, 3072), device="meta"),
+                torch.empty((768, 3072), device="meta")]
     else:
         args = [torch.empty((8, 896), device="meta"),
                 torch.empty((896,), device="meta")]
