@@ -7,22 +7,28 @@ NVIDIA H100.
 Phases, in order; any failure exits non-zero and no phase catches another's
 error:
   1. the card's name and power limit, torch/CUDA versions; TF32 off;
-  2. build the kernel library from src/repro_torch/csrc with nvcc;
+  2. build the kernel library from src/repro_torch/csrc with nvcc; every
+     instantiation of flash attention's bf16 tensor-core body must report
+     0 spill bytes, and its registers are printed;
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (qwen2-0.5b and hymba-1.5b; flash attention also at
-     h2o-danube-3-4b's head dim 120; both RMSNorm kernels also in f32 at
+     h2o-danube-3-4b's head dim 120, timed in bf16, and at the edges of its
+     tensor-core body, each case checked to have launched the body of its
+     dtype; both RMSNorm kernels also in f32 at
      h2o-danube-3-4b's D 3840 and glm4-9b's 4096, the rows their wrappers
      refused before), with its time, the plain version's, its bound and a
      library call's as a yardstick;
   4. prefill at full qwen2-0.5b width (B 4 x S 1024) through
      `make_prefill_step`, kernel path against forced-plain path, with the
-     launch counts of each kernel;
+     launch counts of each kernel (every flash-attention launch on the
+     tensor-core body), timed cold and once more;
   5. continuous-batching serve at full width (`ServeEngine`, 8 slots,
      12 requests), a mid-stream admission against a solo run; then a
      `torch.profiler` window of 20 steady decode ticks and the device's
      idle share in it;
   6. prefill at full hymba-1.5b width (B 2 x S 2048, past the 1024-token
-     window): the bf16 main path with its launch counts and a
+     window): the bf16 main path with its launch counts (flash attention on
+     the tensor-core body) and a
      `torch.profiler` pass over it, then the kernel path against the
      forced-plain path in f32, and what a window one key short gives;
   7. continuous-batching serve of hymba-1.5b at full width, as phase 5;
@@ -39,9 +45,11 @@ error:
      one must show `mem_waitcnt` edges at its `cp.async.wait_group` line,
      the baseline none), then both kernels through their entry points;
  11. the LEO loop at full qwen2-0.5b width: `loss_fn` (B 4 x S 1024, bf16)
-     under attention_impl="plain" and "kernel" on the card, the two losses
-     within a limit that a causal band one key off exceeds, on the weights
-     and batches of two seeds; both programs
+     under attention_impl="plain" and "kernel" on the card, on the weights
+     and batches of every seed of LOSS_SEEDS, each loss held to the f32 loss
+     by a limit drawn from the spread of right attentions on those seeds,
+     and K1 with its causal band one key off outside the limit where the
+     loss can see it (the rule is at LOSS_FACTOR); the first seed's programs
      captured and diagnosed on `nvidia_h100_sxm` and held to the four cases
      of `tests/test_system.py::TestLeoGuidedLoop`; LEO's estimate beside
      the measured time, and the card's copy and bf16 matmul rates;
@@ -65,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -82,15 +91,33 @@ PEAK_BYTES = 3.35e12
 ARCH = "qwen2-0.5b"
 HYBRID_ARCH = "hymba-1.5b"
 XLSTM_ARCH = "xlstm-125m"
-# Phase 11: |loss(kernel) - loss(plain)| at full qwen2-0.5b width in bf16,
-# B 4 x S 1024, random weights and batch from each of LOSS_SEEDS.  The card
-# read 3.5e-3 on a loss of 527.86 at seed 0 (bf16 rounds the two paths'
-# attention outputs at other places through 24 layers); K1 with its causal
-# band one key off moved that loss by 0.33.  The limit is about 3x the
-# reading, and the script holds both seeds to it and requires the fault
-# to fall outside it on both.
-LOSS_LIMIT = 1e-2
-LOSS_SEEDS = (0, 1)
+# Phase 11: the loss gate, at full qwen2-0.5b width (B 4 x S 1024), on the
+# random weights and batch of every seed in LOSS_SEEDS; none is dropped.
+# The truth on each seed is the f32 loss (attention_impl="plain").  The
+# rule: the kernel's gap from it may be at most LOSS_FACTOR times the
+# largest gap, over all the seeds, of the right attentions that are not the
+# kernel, measured in the same run; so a right K1 passes by construction.
+# It is applied at two levels:
+#   * the LEO loop's bf16 program: the right attentions are the plain path
+#     and K1's plain version at the call site;
+#   * the f32 model with q, k and v rounded to bf16 at the call site, so
+#     K1's bf16 body runs and its output returns in f32: the right attention
+#     is K1's plain version on the same rounded inputs.  K1 with its causal
+#     band one key off must fall outside this limit on every seed.
+# The card (NVIDIA H100 80GB HBM3, 700.00 W, seeds 0-9; PERF.md section 6)
+# read, in the bf16 program, gaps of up to 4.46e-2 for the right attentions
+# other than K1 and 6.02e-2 for K1 (limit 0.134), while the band one key
+# off moved the loss by as little as 3.55e-2 (seed 6): logits near 600
+# carry a bf16 step of 4, and no limit separates the two there, so that
+# level's fault is printed beside its limit, not gated.  With only the
+# attention in bf16 the right gaps reached 2.32e-3, K1's 1.83e-3 (limit
+# 6.96e-3), and the fault moved the loss by at least 4.43e-2 (seed 6).
+# The factor 3 leaves room for K1's gap, one more draw of the same
+# rounding noise: it read 1.35x the others' largest in the bf16 program and
+# 0.79x with the attention alone.  Two seeds that happened to read small
+# gaps (the old gate: 1e-2 on seeds 0 and 1) are not a rule.
+LOSS_FACTOR = 3.0
+LOSS_SEEDS = tuple(range(10))
 
 
 class SmokeFailure(RuntimeError):
@@ -157,16 +184,42 @@ def bound(flops: float, nbytes: float, dtype: str):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def attention_pairs(s: int, window) -> int:
-    """(query, key) pairs inside the causal (and window) band."""
+def attention_pairs(s: int, window, causal: bool = True) -> int:
+    """(query, key) pairs inside the band: keys up to the query (causal) or
+    to S - 1, and after query - window."""
     total = 0
     for qpos in range(s):
         lo = 0 if window is None else max(0, qpos - window + 1)
-        total += qpos - lo + 1
+        total += (qpos + 1 if causal else s) - lo
     return total
 
 
-# -- phase 3 ------------------------------------------------------------------
+# -- phases 2 and 3 -----------------------------------------------------------
+
+def ptxas_report(log: str, marker: str):
+    """Registers and spill bytes (stores + loads) of each function in the
+    compiler's `-Xptxas -v` output whose mangled name holds `marker`,
+    keyed by its template arguments (`ILi64ELi32E` -> "64,32")."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1) if marker in found.group(1) else None
+            continue
+        if name is None:
+            continue
+        key = ",".join(re.findall(r"Li(\d+)E", name)) or name
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            rows.setdefault(key, {})["spill_bytes"] = \
+                int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:  # the last line of a function's report
+            rows.setdefault(key, {})["registers"] = int(regs.group(1))
+            name = None
+    return rows
+
 
 def compare(out, plain, dt_name: str, f32_atol: float):
     """Max abs error of `out` against `plain`, and the tolerance it is held
@@ -185,36 +238,46 @@ def compare(out, plain, dt_name: str, f32_atol: float):
 
 def check_flash_attention(torch, ops, F, dt_name: str, *, s=1024,
                           window=None, block_q=64, block_k=64, timed=False,
-                          b=4, h=14, kv=2, hd=64):
+                          b=4, h=14, kv=2, hd=64, causal=True):
+    """K1 against `flash_attention_plain` element by element (`compare`),
+    on the body of its dtype: bf16 on the tensor cores, f32 on the CUDA
+    cores (`flash_attention.body_launches`)."""
     dtype = getattr(torch, dt_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = ((0.5 * torch.randn((b, s, n, hd), generator=gen,
                                   device="cuda")).to(dtype)
                for n in (h, kv, kv))
-    out = ops.flash_attention(q, k, v, window=window, block_q=block_q,
-                              block_k=block_k)
-    plain = ops.flash_attention_plain(q, k, v, window=window)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)
+    body = {name: n for name, n in ops.flash_attention.body_launches.items()
+            if n}
+    plain = ops.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err, within, tol = compare(out, plain, dt_name, 2e-5)
     case = (f"flash_attention {dt_name} B{b} S{s} H{h} Kv{kv} hd{hd} "
-            f"window={window} block_q={block_q} block_k={block_k}")
+            f"window={window} block_q={block_q} block_k={block_k}"
+            + ("" if causal else " not causal"))
+    expect = "tensor_core" if dt_name == "bfloat16" else "cuda_core"
+    require(body == {expect: 1}, f"{case}: launched {body}, not {expect}")
     require(torch.isfinite(out.float()).all().item(), f"{case}: non-finite")
     require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
-    row = {"case": case, "max_abs_err": err, "tol": tol}
+    row = {"case": case, "body": expect, "max_abs_err": err, "tol": tol}
     if timed:
-        flops = 4.0 * b * h * hd * attention_pairs(s, window)
+        flops = 4.0 * b * h * hd * attention_pairs(s, window, causal)
         nbytes = 2 * b * s * (h + kv) * hd * q.element_size()
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dt_name)
         kernel = lambda: ops.flash_attention(  # noqa: E731
-            q, k, v, window=window, block_q=block_q, block_k=block_k)
+            q, k, v, causal=causal, window=window, block_q=block_q,
+            block_k=block_k)
         row["ms"] = time_ms(torch, kernel)
         row["call_ms"] = call_ms(torch, kernel)
         row["plain_ms"] = time_ms(torch, lambda: ops.flash_attention_plain(
-            q, k, v, window=window), samples=11, reps=3)
+            q, k, v, causal=causal, window=window), samples=11, reps=3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window is None:
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         else:  # the causal band of `window` keys as a boolean mask
             pos = torch.arange(s, device="cuda")
             band = (pos[None, :] <= pos[:, None]) & \
@@ -321,6 +384,13 @@ def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
+    bodies = dict(ops.flash_attention.body_launches)
+    # the first call at full length also grows the allocator's pool: time
+    # a second one beside it
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    warm_seconds = time.perf_counter() - t0
 
     require(tuple(logits.shape) == (b, s, cfg.vocab_size),
             f"prefill logits shape {tuple(logits.shape)}")
@@ -332,6 +402,9 @@ def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
     require(counts["rmsnorm_pipelined"] == 2 * n_layers + 1,
             f"prefill: {counts['rmsnorm_pipelined']} rmsnorm launches, "
             f"expected {2 * n_layers + 1}")
+    require(bodies == {"tensor_core": n_layers, "cuda_core": 0},
+            f"prefill: flash_attention bodies {bodies}: bf16 goes to the "
+            f"tensor-core body")
 
     with flags(force_plain=True):
         plain = prefill(params, {"tokens": tokens})
@@ -340,13 +413,15 @@ def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
     err = (logits - plain).abs().max().item()
     top1 = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     rel_tol = 2e-2
-    print(f"  prefill B{b} S{s}: {seconds:.3f} s, launches {counts}, "
+    print(f"  prefill B{b} S{s}: {seconds:.3f} s (again {warm_seconds:.4f} "
+          f"s), launches {counts} (flash_attention bodies {bodies}), "
           f"logits max|kernel-plain| {err:.4f} of max|logit| {scale:.2f} "
           f"(tol {rel_tol:g} x max|logit|), top-1 agreement {top1:.5f}")
     require(err <= rel_tol * scale,
             f"prefill: kernel vs plain logits differ by {err}")
     require(top1 >= 0.99, f"prefill: top-1 agreement {top1} < 0.99")
-    return {"B": b, "S": s, "seconds": seconds, "launches": counts,
+    return {"B": b, "S": s, "seconds": seconds, "warm_seconds": warm_seconds,
+            "launches": counts, "flash_attention_bodies": bodies,
             "max_abs_err": err, "max_abs_logit": scale, "top1": top1}
 
 
@@ -464,6 +539,7 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
+    bodies = dict(ops.flash_attention.body_launches)
     require(tuple(kernel16.shape) == (b, s, cfg.vocab_size),
             f"hybrid prefill logits shape {tuple(kernel16.shape)}")
     require(torch.isfinite(kernel16).all().item(),
@@ -474,8 +550,11 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
               "mlstm_chunkwise": 0, "slstm_scan": 0}
     require(counts == expect, f"hybrid prefill: launches {counts}, "
             f"expected {expect}")
+    require(bodies == {"tensor_core": cfg.n_layers, "cuda_core": 0},
+            f"hybrid prefill: flash_attention bodies {bodies}: bf16 goes "
+            f"to the tensor-core body")
     print(f"  {cfg.name} bf16 prefill B{b} S{s}: {seconds:.3f} s, launches "
-          f"{counts}")
+          f"{counts} (flash_attention bodies {bodies})")
     profile = profile_prefill(torch, prefill, params, tokens)
     with flags(force_plain=True):
         plain16 = prefill(params, {"tokens": tokens})
@@ -543,6 +622,7 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
             f"{k_mean}, top-1 {k_top1} vs f32; plain path {p_mean}, "
             f"{p_top1}")
     return {"B": b, "S": s, "seconds": seconds, "launches": counts,
+            "flash_attention_bodies": bodies,
             "profile": profile, "f32_seconds": seconds32,
             "max_abs_err": err, "max_abs_logit": scale, "top1": top1,
             "window_short_f32": {"max": short_err, "top1": short_top1},
@@ -858,83 +938,166 @@ def shifted_keys_attention(flash_attention):
     return faulty
 
 
-def compare_losses(torch, ops, cfg, flags, loss_fn, init_params,
-                   attention_module, seed: int, b: int, s: int):
-    """The loss on the card under attention_impl="plain" and "kernel", on
-    weights and a batch drawn from `seed`, each run with the launch counts
-    zeroed just before it and read just after; the two within LOSS_LIMIT,
-    and K1 with its causal band one key off outside it."""
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        seed))
+def plain_attention(flash_attention_plain):
+    """K1's plain version at the models' call site (the block sizes belong
+    to the kernel)."""
+    def attention(q, k, v, causal=True, window=None):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return attention
+
+
+def bf16_attention(torch, attention):
+    """`attention` on q, k and v rounded to bf16, its output back in f32:
+    in the f32 model K1 then runs its bf16 body."""
+    def rounded(q, k, v, **kwargs):
+        return attention(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                         **kwargs).float()
+    return rounded
+
+
+def seed_losses(torch, ops, cfg, flags, loss_fn, init_params,
+                attention_module, seed: int, b: int, s: int):
+    """Phase 11's losses on weights and a batch drawn from `seed`: the f32
+    loss (the truth); in the f32 model with the attention in bf16, K1, its
+    plain version and K1 with its band one key off; in the bf16 program the
+    plain path and K1 (each after a warm-up, with the launch counts zeroed
+    just before it and read just after), K1's plain version and the fault.
+    Every K1 launch must be the tensor-core body."""
     gen = torch.Generator(device="cuda").manual_seed(11 + seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device="cuda"),
              "labels": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device="cuda")}
+    real = attention_module.flash_attention
+    one_body = {"tensor_core": cfg.n_layers, "cuda_core": 0}
 
-    def loss(impl):
-        with flags(attention_impl=impl):
-            return loss_fn(params, cfg, batch)
+    def loss(params, c, impl="kernel", attention=None):
+        attention_module.flash_attention = attention or real
+        try:
+            with flags(attention_impl=impl):
+                return loss_fn(params, c, batch)
+        finally:
+            attention_module.flash_attention = real
 
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        seed))
+    f32 = {"truth": loss(params32, cfg32, "plain").item()}
+    ops.reset_launch_counts()
+    f32["kernel"] = loss(params32, cfg32,
+                         attention=bf16_attention(torch, real)).item()
+    require(ops.flash_attention.body_launches == one_body,
+            f"loss seed {seed}, f32 model: flash_attention bodies "
+            f"{ops.flash_attention.body_launches}, expected {one_body}")
+    f32["k1_plain"] = loss(params32, cfg32, attention=bf16_attention(
+        torch, plain_attention(ops.flash_attention_plain))).item()
+    f32["fault"] = loss(params32, cfg32, attention=bf16_attention(
+        torch, shifted_keys_attention(real))).item()
+    del params32
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed))
     runs = {}
     for impl in ("plain", "kernel"):
-        loss(impl)  # warm-up
+        loss(params, cfg, impl)  # warm-up
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        value = loss(impl)
+        value = loss(params, cfg, impl)
         torch.cuda.synchronize()
         runs[impl] = {"loss": value.item(),
                       "seconds": time.perf_counter() - t0,
-                      "launches": ops.launch_counts()}
+                      "launches": ops.launch_counts(),
+                      "flash_attention_bodies": dict(
+                          ops.flash_attention.body_launches)}
         require(math.isfinite(runs[impl]["loss"]), f"loss {impl}: not finite")
     norms = 2 * cfg.n_layers + 1
     require(runs["kernel"]["launches"]["flash_attention"] == cfg.n_layers and
-            runs["kernel"]["launches"]["rmsnorm_pipelined"] == norms,
-            f"loss kernel: launches {runs['kernel']['launches']}")
+            runs["kernel"]["launches"]["rmsnorm_pipelined"] == norms and
+            runs["kernel"]["flash_attention_bodies"] == one_body,
+            f"loss kernel: launches {runs['kernel']['launches']}, "
+            f"flash_attention bodies "
+            f"{runs['kernel']['flash_attention_bodies']}")
     require(runs["plain"]["launches"]["flash_attention"] == 0 and
             runs["plain"]["launches"]["rmsnorm_pipelined"] == norms,
             f"loss plain: launches {runs['plain']['launches']}")
-    real = attention_module.flash_attention
-    attention_module.flash_attention = shifted_keys_attention(real)
-    try:
-        faulty = loss("kernel").item()
-    finally:
-        attention_module.flash_attention = real
-    gap = abs(runs["kernel"]["loss"] - runs["plain"]["loss"])
-    fault_gap = abs(faulty - runs["plain"]["loss"])
-    print(f"  loss B{b} S{s} bf16, seed {seed}: plain "
-          f"{runs['plain']['loss']:.6f} "
-          f"({runs['plain']['seconds'] * 1e3:.3f} ms), kernel "
-          f"{runs['kernel']['loss']:.6f} "
-          f"({runs['kernel']['seconds'] * 1e3:.3f} ms), |kernel-plain| "
-          f"{gap:.3e} (limit {LOSS_LIMIT:g}); band one key off: "
-          f"{faulty:.6f}, |fault-plain| {fault_gap:.3e}; launches plain "
-          f"{runs['plain']['launches']}, kernel {runs['kernel']['launches']}")
-    require(gap <= LOSS_LIMIT, f"loss seed {seed}: kernel vs plain differ "
-            f"by {gap}")
-    require(fault_gap > LOSS_LIMIT, f"loss seed {seed}: a band one key off "
-            f"moves the loss by {fault_gap}, within the limit: the check "
-            f"cannot see it")
-    return {"runs": runs, "faulty_loss": faulty, "gap": gap,
-            "fault_gap": fault_gap, "inputs": (params, batch)}
+    bf16 = {impl: run["loss"] for impl, run in runs.items()}
+    bf16["k1_plain"] = loss(params, cfg, attention=plain_attention(
+        ops.flash_attention_plain)).item()
+    bf16["fault"] = loss(params, cfg,
+                         attention=shifted_keys_attention(real)).item()
+    for name, value in {**f32, **bf16}.items():
+        require(math.isfinite(value), f"loss seed {seed} {name}: not finite")
+    return {"runs": runs, "f32": f32, "bf16": bf16,
+            "inputs": (params, batch)}
+
+
+def loss_gate(seeds):
+    """The limits of phase 11's rule (see LOSS_FACTOR) from the spread of
+    the right attentions that are not the kernel over every seed; the gap
+    of each loss from its seed's f32 truth."""
+    def gap(r, level, name):
+        return abs(r[level][name] - r["f32"]["truth"])
+    spread = {"bf16": max(gap(r, "bf16", name) for r in seeds.values()
+                          for name in ("plain", "k1_plain")),
+              "f32": max(gap(r, "f32", "k1_plain") for r in seeds.values())}
+    limits = {level: LOSS_FACTOR * v for level, v in spread.items()}
+    gaps = {seed: {level: {name: gap(r, level, name) for name in r[level]
+                           if name != "truth"}
+                   for level in ("bf16", "f32")}
+            for seed, r in seeds.items()}
+    return spread, limits, gaps
 
 
 def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
                  attention_module):
-    """The LEO loop at full qwen2-0.5b width, B 4 x S 1024, bf16: the two
-    losses compared on each of LOSS_SEEDS (`compare_losses`); then the
-    first seed's program under each attention_impl captured and diagnosed on
-    `nvidia_h100_sxm`, held to the four cases of `tests/test_system.py::
-    TestLeoGuidedLoop`."""
+    """The LEO loop at full qwen2-0.5b width, B 4 x S 1024, bf16: the
+    losses of every seed of LOSS_SEEDS (`seed_losses`) held to the rule at
+    LOSS_FACTOR (`loss_gate`); then the first seed's program under each
+    attention_impl captured and diagnosed on `nvidia_h100_sxm`, held to the
+    four cases of `tests/test_system.py::TestLeoGuidedLoop`."""
     b, s = 4, 1024
-    seeds = {seed: compare_losses(torch, ops, cfg, flags, loss_fn,
+    seeds = {}
+    for seed in LOSS_SEEDS:
+        seeds[seed] = seed_losses(torch, ops, cfg, flags, loss_fn,
                                   init_params, attention_module, seed, b, s)
-             for seed in LOSS_SEEDS}
-    params, batch = seeds[LOSS_SEEDS[0]].pop("inputs")
-    for seed in LOSS_SEEDS[1:]:
-        del seeds[seed]["inputs"]
+        inputs = seeds[seed].pop("inputs")
+        if seed == LOSS_SEEDS[0]:
+            params, batch = inputs
+        del inputs
     runs = seeds[LOSS_SEEDS[0]]["runs"]
+    spread, limits, gaps = loss_gate(seeds)
+    print(f"  loss B{b} S{s}, |loss - f32 loss| on seeds {LOSS_SEEDS[0]}.."
+          f"{LOSS_SEEDS[-1]}: right attentions other than K1 reach "
+          f"{spread['bf16']:.4e} in the bf16 program and {spread['f32']:.4e} "
+          f"with the attention alone in bf16; limits {LOSS_FACTOR:g}x: "
+          f"{limits['bf16']:.4e} and {limits['f32']:.4e}")
+    for seed, r in seeds.items():
+        g = gaps[seed]
+        print(f"  seed {seed}: f32 loss {r['f32']['truth']:.6f}; bf16 "
+              f"program: plain {r['bf16']['plain']:.6f} "
+              f"({r['runs']['plain']['seconds'] * 1e3:.3f} ms), kernel "
+              f"{r['bf16']['kernel']:.6f} "
+              f"({r['runs']['kernel']['seconds'] * 1e3:.3f} ms), gaps "
+              + ", ".join(f"{n} {v:.3e}" for n, v in g["bf16"].items())
+              + "; attention alone in bf16, gaps "
+              + ", ".join(f"{n} {v:.3e}" for n, v in g["f32"].items()))
+        require(g["bf16"]["kernel"] <= limits["bf16"],
+                f"loss seed {seed}: the bf16 program through K1 is "
+                f"{g['bf16']['kernel']} from the f32 loss, beyond "
+                f"{limits['bf16']}")
+        require(g["f32"]["kernel"] <= limits["f32"],
+                f"loss seed {seed}: K1's bf16 body in the f32 model is "
+                f"{g['f32']['kernel']} from the f32 loss, beyond "
+                f"{limits['f32']}")
+        require(g["f32"]["fault"] > limits["f32"],
+                f"loss seed {seed}: a band one key off moves the loss by "
+                f"{g['f32']['fault']}, within {limits['f32']}: the check "
+                f"cannot see it")
+    faults_inside = [seed for seed in seeds
+                     if gaps[seed]["bf16"]["fault"] <= limits["bf16"]]
+    print(f"  band one key off inside the bf16 program's limit (printed, "
+          f"not gated: no limit separates there) on seeds {faults_inside}")
 
     backend = core.get_backend("nvidia_h100_sxm")
     diag = {}
@@ -1001,11 +1164,18 @@ def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
           f"backend's {backend.hw.hbm_bw / 1e12:.2f}; bf16 matmul "
           f"{rates['bf16_matmul_flops'] / 1e12:.1f} TFLOP/s beside "
           f"{backend.hw.peak_flops_bf16 / 1e12:.0f}")
-    return {"B": b, "S": s, "limit": LOSS_LIMIT, "seeds": seeds,
+    return {"B": b, "S": s, "factor": LOSS_FACTOR, "spread": spread,
+            "limits": limits, "gaps": gaps, "seeds": seeds,
+            "fault_inside_bf16_limit": faults_inside,
             "diagnosis": diag, "rates": rates,
             "launches": {k: sum(r["launches"][k] for one in seeds.values()
                                 for r in one["runs"].values())
-                         for k in runs["plain"]["launches"]}}
+                         for k in runs["plain"]["launches"]},
+            "flash_attention_bodies": {
+                k: sum(r["flash_attention_bodies"][k]
+                       for one in seeds.values()
+                       for r in one["runs"].values())
+                for k in runs["kernel"]["flash_attention_bodies"]}}
 
 
 def device_rates(torch):
@@ -1272,6 +1442,7 @@ def main(argv=None) -> int:
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, TC_BLOCK_K
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
     from repro_torch.models import xlstm as xlstm_module
@@ -1300,11 +1471,20 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 2: built {_build.library_path().name} from "
           f"{[p.name for p in _build.sources()]} in {build_s:.1f} s")
-    log = (_build.BUILD_DIR / "build.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("  ptxas:", line.strip())
+    log = _build.log_path()
+    require(log.exists(), f"phase 2: no compiler output at {log}")
+    for line in log.read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas:", line.strip())
+    tc = ptxas_report(log.read_text(), "flash_attention_tc_kernel")
+    print("  flash_attention bf16 tensor-core body, ptxas by HD,block_k: "
+          + ", ".join(f"{key} {r.get('registers')} registers "
+                      f"{r.get('spill_bytes')} spill bytes"
+                      for key, r in sorted(tc.items())))
+    require(len(tc) == len(HEAD_DIMS) * len(TC_BLOCK_K) and all(
+        r.get("spill_bytes") == 0 and r.get("registers") for r in
+        tc.values()), f"phase 2: bf16 flash attention instantiations "
+            f"{tc}: each must be reported with 0 spill bytes")
 
     # phase 3
     print("phase 3: kernels against their plain versions")
@@ -1312,13 +1492,31 @@ def main(argv=None) -> int:
           check_flash_attention(torch, ops, F, "float32", timed=True),
           # hymba-1.5b's prefill: B 2 x S 2048, 25 / 5 heads, window 1024
           check_flash_attention(torch, ops, F, "bfloat16", timed=True, b=2,
-                                s=2048, h=25, kv=5, window=1024)]
+                                s=2048, h=25, kv=5, window=1024),
+          # h2o-danube-3-4b's head dim 120, run zero-padded to 128
+          check_flash_attention(torch, ops, F, "bfloat16", timed=True, b=1,
+                                h=32, kv=8, hd=120)]
+    # the bf16 body's edges: head dims, no causal band, S below one tile
+    # and off the tiles, a window of 1 and one off the tiles
+    fa += [check_flash_attention(torch, ops, F, "bfloat16", b=2, s=s_,
+                                 h=4, kv=2, hd=hd_, window=w_, causal=c_)
+           for s_, hd_, w_, c_ in ((256, 16, None, True),
+                                   (256, 32, None, True),
+                                   (256, 128, None, True),
+                                   (256, 64, None, False),
+                                   (17, 64, 50, True), (300, 64, 50, True),
+                                   (300, 64, 50, False),
+                                   (256, 64, 1, True), (256, 64, 100, True))]
     for dt in ("bfloat16", "float32"):
         fa += [check_flash_attention(torch, ops, F, dt, window=256),
                check_flash_attention(torch, ops, F, dt, block_q=64,
                                      block_k=32),
                check_flash_attention(torch, ops, F, dt, block_q=32,
                                      block_k=128),
+               check_flash_attention(torch, ops, F, dt, block_q=32,
+                                     block_k=32),
+               check_flash_attention(torch, ops, F, dt, block_q=32,
+                                     block_k=64),
                check_flash_attention(torch, ops, F, dt, s=1000),
                # h2o-danube-3-4b's head dim 120, run zero-padded to 128
                check_flash_attention(torch, ops, F, dt, b=1, h=32, kv=8,
@@ -1443,20 +1641,37 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
+    main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
     main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
     main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
                  xserve)
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:99",
          "launches": sum(r["launches"]["flash_attention"]
                          for r in main_runs),
          "max_abs_err": max(r["max_abs_err"] for r in fa),
          "ms": main_fa["ms"], "plain_ms": main_fa["plain_ms"],
          "bound_ms": main_fa["bound_ms"], "bound_by": main_fa["bound_by"],
-         "library_ms": main_fa["library_ms"]},
+         "library_ms": main_fa["library_ms"],
+         # K1's two bodies, by dtype, at qwen2-0.5b's prefill shape; the
+         # launches of each in the same main-path runs
+         "bodies": [
+             {"body": body, "source": source,
+              "launches": sum(r.get("flash_attention_bodies", {}).get(
+                  body, 0) for r in main_runs),
+              "max_abs_err": max(r["max_abs_err"] for r in fa
+                                 if r["body"] == body),
+              **{key: row[key] for key in ("ms", "call_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}}
+             for body, source, row in (
+                 ("tensor_core", "src/repro_torch/csrc/flash_attention_tc.cu",
+                  main_fa),
+                 ("cuda_core", "src/repro_torch/csrc/flash_attention.cu",
+                  main_fa32))]},
         {"name": "rmsnorm_pipelined", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:90",

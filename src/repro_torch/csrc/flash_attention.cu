@@ -1,4 +1,6 @@
-// Flash attention (forward, causal / sliding-window, GQA) for Hopper (sm_90a).
+// Flash attention (forward, causal / sliding-window, GQA) for Hopper (sm_90a):
+// the f32 body, on the CUDA cores.  bf16 inputs take the tensor-core body of
+// flash_attention_tc.cu; TF32 would break this body's f32 bar (2e-5).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel): online softmax with f32 (m, l, acc),
@@ -8,17 +10,16 @@
 // The TPU grid (b, h, n_q, n_kv) carried (m, l, acc) in VMEM across the
 // sequential key axis.  Blocks on the H100 run in no order, so here one
 // block owns one (b, h, q-block), loops over its key tiles itself, stages
-// each K/V tile in shared memory (converted to f32) and keeps m, l and the
-// accumulator of its query row in registers: one thread per query row.
+// each K/V tile in shared memory and keeps m, l and the accumulator of its
+// query row in registers: one thread per query row.
 // The band of keys is computed from positions, not block indices:
 // keys max(0, q_start - window + 1) .. q_end - 1 (causal), so any
 // block_q / block_k pair is right and a ragged S is masked, not refused.
 //
-// Bound on the H100: operations, 2*B*H*S^2*hd for causal attention (QK^T and
-// PV over the lower triangle) over 989 TFLOP/s bf16.  This first version
-// does its dot products on the CUDA cores in f32 (67 TFLOP/s peak), so it
-// cannot come near that bound; mma.sync / wgmma with a TMA ring is later
-// work.  What it keeps from the TPU design is the point of flash attention:
+// Bound on the H100: operations, 4*B*H*hd*pairs (QK^T and PV over the
+// (query, key) pairs inside the band; 2*B*H*S^2*hd for a causal band) over
+// 67 TFLOP/s, the f32 rate outside the tensor cores, where its dot products
+// run.  What it keeps from the TPU design is the point of flash attention:
 // the S x S scores never reach device memory.
 #include "common.cuh"
 
@@ -27,11 +28,11 @@ namespace {
 constexpr int kChunk = 16;       // keys scored together per online update
 constexpr float kNegInf = -1e30f;
 
-template <typename T, int HD>
-__global__ void flash_attention_kernel(const T* __restrict__ q,
-                                       const T* __restrict__ k,
-                                       const T* __restrict__ v,
-                                       T* __restrict__ o, int64_t S,
+template <int HD>
+__global__ void flash_attention_kernel(const float* __restrict__ q,
+                                       const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       float* __restrict__ o, int64_t S,
                                        int64_t H, int64_t Kv, int block_k,
                                        int causal, int64_t window,
                                        float scale) {
@@ -54,9 +55,9 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
 
   float qr[HD], acc[HD];
   if (row_ok) {
-    const T* qp = q + ((b * S + qpos) * H + h) * HD;
+    const float* qp = q + ((b * S + qpos) * H + h) * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = repro::to_f32(qp[d]);
+    for (int d = 0; d < HD; ++d) qr[d] = qp[d];
   } else {
 #pragma unroll
     for (int d = 0; d < HD; ++d) qr[d] = 0.f;
@@ -66,8 +67,8 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
   float m = kNegInf, l = 0.f;
 
   const int64_t kv_stride = Kv * HD;  // between consecutive keys
-  const T* kb = k + (b * S * Kv + kvh) * HD;
-  const T* vb = v + (b * S * Kv + kvh) * HD;
+  const float* kb = k + (b * S * Kv + kvh) * HD;
+  const float* vb = v + (b * S * Kv + kvh) * HD;
 
   for (int64_t t0 = k_lo; t0 < k_hi; t0 += block_k) {
     const int n = static_cast<int>(min(static_cast<int64_t>(block_k),
@@ -76,8 +77,8 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     for (int64_t idx = threadIdx.x; idx < static_cast<int64_t>(n) * HD;
          idx += blockDim.x) {
       const int64_t j = idx / HD, d = idx % HD;
-      ks[idx] = repro::to_f32(kb[(t0 + j) * kv_stride + d]);
-      vs[idx] = repro::to_f32(vb[(t0 + j) * kv_stride + d]);
+      ks[idx] = kb[(t0 + j) * kv_stride + d];
+      vs[idx] = vb[(t0 + j) * kv_stride + d];
     }
     __syncthreads();
     if (!row_ok) continue;  // every thread still reaches both barriers
@@ -122,15 +123,15 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
 
   if (row_ok) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* op = o + ((b * S + qpos) * H + h) * HD;
+    float* op = o + ((b * S + qpos) * H + h) * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = repro::from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-           int64_t S, int64_t H, int64_t Kv, int64_t block_q,
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o,
+           int64_t B, int64_t S, int64_t H, int64_t Kv, int64_t block_q,
            int64_t block_k, int64_t causal, int64_t window, float scale,
            cudaStream_t stream) {
   const size_t smem = 2 * block_k * HD * sizeof(float);
@@ -139,66 +140,55 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   static size_t configured = 0;
   if (smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = smem;
   }
   const dim3 grid(static_cast<unsigned>((S + block_q - 1) / block_q),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_attention_kernel<T, HD><<<grid, static_cast<unsigned>(block_q),
-                                  smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Kv,
-      static_cast<int>(block_k), static_cast<int>(causal), window, scale);
+  flash_attention_kernel<HD><<<grid, static_cast<unsigned>(block_q), smem,
+                               stream>>>(
+      q, k, v, o, S, H, Kv, static_cast<int>(block_k),
+      static_cast<int>(causal), window, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
-                void* o, int64_t B, int64_t S, int64_t H, int64_t Kv,
-                int64_t block_q, int64_t block_k, int64_t causal,
-                int64_t window, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, Kv, block_q, block_k, causal,
-                           window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, Kv, block_q, block_k,
-                            causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q (B, S, H, hd), k/v (B, S, Kv, hd), out (B, S, H, hd), one dtype,
-// contiguous.  window <= 0 means no sliding window.  `scale` multiplies the
-// scores: 1/sqrt(head_dim) of the model, which is not the template's HD
-// when the wrapper zero-pads the head dim (hd 120 runs as HD 128).
-extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
-                                         const void* k, const void* v,
-                                         void* o, int64_t B, int64_t S,
-                                         int64_t H, int64_t Kv, int64_t hd,
-                                         int64_t block_q, int64_t block_k,
-                                         int64_t causal, int64_t window,
-                                         float scale, void* stream) {
+// f32 q (B, S, H, hd), k/v (B, S, Kv, hd), out (B, S, H, hd), contiguous.
+// window <= 0 means no sliding window.  `scale` multiplies the scores:
+// 1/sqrt(head_dim) of the model, which is not the template's HD when the
+// wrapper zero-pads the head dim (hd 120 runs as HD 128).
+extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
+                                         const void* v, void* o, int64_t B,
+                                         int64_t S, int64_t H, int64_t Kv,
+                                         int64_t hd, int64_t block_q,
+                                         int64_t block_k, int64_t causal,
+                                         int64_t window, float scale,
+                                         void* stream) {
   if (B <= 0 || S <= 0 || Kv <= 0 || H % Kv != 0 || block_q <= 0 ||
       block_q > 1024 || block_k <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(hd, q, k, v, o, B, S, H, Kv, block_q, block_k,
-                              causal, window, scale, s);
-  if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, Kv, block_q,
-                                      block_k, causal, window, scale, s);
-  return cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  switch (hd) {
+    case 16:
+      return launch<16>(qf, kf, vf, of, B, S, H, Kv, block_q, block_k,
+                        causal, window, scale, s);
+    case 32:
+      return launch<32>(qf, kf, vf, of, B, S, H, Kv, block_q, block_k,
+                        causal, window, scale, s);
+    case 64:
+      return launch<64>(qf, kf, vf, of, B, S, H, Kv, block_q, block_k,
+                        causal, window, scale, s);
+    case 128:
+      return launch<128>(qf, kf, vf, of, B, S, H, Kv, block_q, block_k,
+                         causal, window, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -35,11 +35,12 @@ _P, _I64, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_int)
 # C entry points: (name, argtypes).  Each returns cudaGetLastError() as int.
 SIGNATURES = {
-    # dtype, q, k, v, out, B, S, H, Kv, hd, block_q, block_k, causal,
-    # window (0 = none), scale, stream
-    "repro_flash_attention_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64,
-                                  _I64, _I64, _I64, _I64, _I64, _I64, _F32,
-                                  _P],
+    # q, k, v, out, B, S, H, Kv, hd, block_q, block_k, causal, window
+    # (0 = none), scale, stream: f32 (CUDA cores) and bf16 (tensor cores)
+    "repro_flash_attention_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                  _I64, _I64, _I64, _I64, _I64, _F32, _P],
+    "repro_flash_attention_tc_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                     _I64, _I64, _I64, _I64, _I64, _F32, _P],
     # dtype, x, scale, out, R, D, eps, stream
     "repro_rmsnorm_baseline_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32, _P],
     # dtype, x, scale, out, R, D, eps, rows a row block, grid, stream
@@ -87,6 +88,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{_sources_hash(NVCC_FLAGS)}.so"
 
 
+def log_path() -> Path:
+    """The compiler's output for the library at `library_path()`."""
+    return library_path().with_suffix(".log")
+
+
 def _sources_hash(flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(CSRC.glob("*.cu*")):
@@ -99,7 +105,8 @@ def build() -> Path:
     """Compile the library unless an up-to-date one exists; return its path.
 
     The compiler's output (with `-Xptxas -v`: registers, shared memory and
-    spills of each kernel) is written beside the library as `build.log`."""
+    spills of each kernel) is written beside the library under the same
+    hash, at `log_path()`."""
     out = library_path()
     if out.exists():
         return out
@@ -127,8 +134,10 @@ def build() -> Path:
         log.append(" ".join(cmd) + "\n" + res.stdout)
         if res.returncode != 0:
             raise BuildError(f"nvcc link failed:\n{res.stdout}")
+        tmp_log = Path(tmp) / log_path().name
+        tmp_log.write_text("\n".join(log))
+        os.replace(tmp_log, log_path())  # the log first: a library has one
         os.replace(tmp_lib, out)
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
     return out
 
 

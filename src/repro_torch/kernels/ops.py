@@ -5,7 +5,9 @@ the selective scan, and `mlstm_chunkwise_op` / `slstm_scan_op` xLSTM's two
 recurrences.
 
 `launch_counts()` / `reset_launch_counts()` read and zero the wrappers'
-launch counters, so a run can show that its path went through the kernels.
+launch counters, so a run can show that its path went through the kernels;
+the reset also zeroes `flash_attention.body_launches`, the launches of each
+of its two bodies.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.body_launches = dict.fromkeys(
+        flash_attention.body_launches, 0)
 
 
 __all__ = [

@@ -39,7 +39,8 @@ from repro_torch.core import (FUSED_REGION_MARK, OpClass, analyze_module,
                               capture, compute_roofline, diagnostic_context,
                               get_backend)
 from repro_torch.core.torch_frontend import kernel_call
-from repro_torch.kernels.flash_attention import check_flash_attention
+from repro_torch.kernels.flash_attention import (TC_BLOCK_K, TC_BLOCK_Q,
+                                                 check_flash_attention)
 from repro_torch.kernels import ops
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.flags import flags
@@ -250,3 +251,23 @@ def test_flash_attention_checks_shared_memory_at_the_padded_head_dim():
         check_flash_attention(q, q, q, block_k=226)
         with pytest.raises(ValueError, match="head dim 128"):
             check_flash_attention(q, q, q, block_k=230)
+
+
+def test_flash_attention_checks_the_block_pairs_of_the_bf16_body():
+    """The bf16 body (csrc/flash_attention_tc.cu) is built for block_k in
+    TC_BLOCK_K and takes block_q in TC_BLOCK_Q (a warp per 16 rows): the
+    check takes each of those pairs and refuses others, as the launch
+    does; the f32 body takes any block_k that fits."""
+    with FakeTensorMode():
+        q = torch.empty((1, 256, 4, 64), device="cuda", dtype=torch.bfloat16)
+        for block_q in TC_BLOCK_Q:
+            for block_k in TC_BLOCK_K:
+                check_flash_attention(q, q, q, block_q=block_q,
+                                      block_k=block_k)
+        for block_q, block_k in ((64, 48), (64, 16), (64, 256), (8, 64),
+                                 (24, 64), (144, 64)):
+            with pytest.raises(ValueError, match="bf16 body"):
+                check_flash_attention(q, q, q, block_q=block_q,
+                                      block_k=block_k)
+        # the f32 body takes block_k 48
+        check_flash_attention(q.float(), q.float(), q.float(), block_k=48)

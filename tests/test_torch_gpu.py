@@ -32,6 +32,8 @@ pytestmark = pytest.mark.gpu
 
 BF16_TOL = (1e-4, 2.0 ** -7)  # (atol, rtol)
 TOL = {"float32": (2e-5, 0.0), "bfloat16": BF16_TOL}
+# the flash-attention body each dtype takes
+BODY = {"float32": "cuda_core", "bfloat16": "tensor_core"}
 
 
 def _cuda():
@@ -67,11 +69,44 @@ def test_flash_attention(s, h, kv, hd, window, block_q, block_k, dtype):
     q, k, v = _inputs(5, [(2, s, h, hd), (2, s, kv, hd), (2, s, kv, hd)],
                       dtype, dev)
     before = ops.flash_attention.launches
+    bodies = dict(ops.flash_attention.body_launches)
     out = ops.flash_attention(q, k, v, window=window, block_q=block_q,
                               block_k=block_k)
     assert ops.flash_attention.launches == before + 1
+    body = BODY[dtype]
+    assert ops.flash_attention.body_launches == {
+        **bodies, body: bodies[body] + 1}
     _close(out, ops.flash_attention_plain(q, k, v, window=window),
            TOL[dtype])
+
+
+# the bf16 body's edges (phase 3 of chip_smoke.py at small sizes): head
+# dims, no causal band, S below one tile and off the tiles, windows of 1
+# and of no tile multiple, and the ends of block_q's range
+@pytest.mark.parametrize("s,hd,window,causal,block_q,block_k", [
+    (256, 16, None, True, 64, 64),
+    (256, 32, None, True, 64, 64),
+    (256, 128, None, True, 64, 64),
+    (256, 64, None, False, 64, 64),
+    (17, 64, 50, True, 64, 64),
+    (300, 64, 50, True, 64, 64),
+    (300, 64, 50, False, 64, 64),
+    (256, 64, 1, True, 64, 64),
+    (256, 64, 100, True, 64, 64),
+    (200, 64, None, True, 16, 128),
+    (200, 128, 70, True, 128, 32),
+])
+def test_flash_attention_bf16_edges(s, hd, window, causal, block_q,
+                                    block_k):
+    dev = _cuda()
+    q, k, v = _inputs(8, [(2, s, 4, hd), (2, s, 2, hd), (2, s, 2, hd)],
+                      "bfloat16", dev)
+    tc = ops.flash_attention.body_launches["tensor_core"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)
+    assert ops.flash_attention.body_launches["tensor_core"] == tc + 1
+    _close(out, ops.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window), BF16_TOL)
 
 
 # qwen2-0.5b, hymba-1.5b, h2o-danube-3-4b, glm4-9b: in f32 the last two
@@ -129,6 +164,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # block_k 230 fits shared memory at hd 120 but not at the 128 it runs at
     with pytest.raises(ValueError, match="head dim 128"):
         ops.flash_attention(q, q, q, block_k=230)
+    before = ops.flash_attention.launches
+    q = torch.ones((1, 64, 4, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 body"):  # no block_k 48
+        ops.flash_attention(q, q, q, block_k=48)
+    with pytest.raises(ValueError, match="16-byte"):  # starts 8 bytes in
+        off = torch.ones(1 * 64 * 4 * 64 + 4, device=dev,
+                         dtype=torch.bfloat16)[4:].view(1, 64, 4, 64)
+        ops.flash_attention(off, q, q)
+    assert ops.flash_attention.launches == before
     q = torch.ones((2, 96, 2, 32), device=dev)
     g = torch.zeros((2, 96, 2), device=dev)
     before = ops.mlstm_chunkwise.launches

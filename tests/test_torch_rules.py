@@ -182,6 +182,22 @@ def test_library_name_follows_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
 
 
+def test_build_log_is_keyed_like_its_library(monkeypatch, tmp_path):
+    """Phase 2 reads the ptxas report of the library it loaded, not the
+    last build's in the same directory."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text("// one")
+    monkeypatch.setattr(_build, "CSRC", src)
+    first = _build.log_path()
+    assert first.parent == _build.library_path().parent
+    assert first.stem == _build.library_path().stem
+    (src / "a.cu").write_text("// two")
+    assert _build.log_path() != first
+    assert _build.log_path().stem == _build.library_path().stem
+
+
 def test_config_tables_equal_reference():
     """The port's copy of the architecture table cannot drift."""
     import repro.configs as j
