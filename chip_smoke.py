@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero and no phase catches another's
 error:
   1. the card's name and power limit, torch/CUDA versions; TF32 off;
   2. build the kernel library from src/repro_torch/csrc with nvcc; every
-     instantiation of flash attention's bf16 tensor-core body must report
-     0 spill bytes, and its registers are printed;
+     instantiation of flash attention's bf16 tensor-core body and of the
+     two RMSNorm kernels (by dtype, chunks a lane and, for the baseline,
+     16-byte or value-by-value access) must report 0 spill bytes, and their
+     registers are printed;
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (qwen2-0.5b and hymba-1.5b; flash attention also at
      h2o-danube-3-4b's head dim 120, timed in bf16, and at the edges of its
@@ -37,13 +39,16 @@ error:
      decode through a 1024-entry ring, its last 8 logits against `forward`
      (and against `forward` with a window one key short or long);
   9. the baseline RMSNorm kernel (K3) against its plain version at D 896
-     and 1600, R 8 and 4096, f32 and bf16, timed beside the pipelined one
-     (K2) and `F.rms_norm`, with the eager cost of a call to each;
+     and 1600, R 8 and 4096, f32 and bf16, and against the pipelined one
+     (K2) bit for bit, timed beside K2 and `F.rms_norm`, with the eager
+     cost of a call to each;
  10. the paper's baseline-vs-pipelined RMSNorm study on the card's own
      code: the PTX of csrc/rmsnorm.cu through `repro_torch.core`'s PTX
-     front-end, both kernels diagnosed on `nvidia_h100_sxm` (the pipelined
-     one must show `mem_waitcnt` edges at its `cp.async.wait_group` line,
-     the baseline none), then both kernels through their entry points;
+     front-end, both kernels diagnosed on `nvidia_h100_sxm` at the
+     instantiations bf16 D 896 takes (the pipelined one must show
+     `mem_waitcnt` edges at its `cp.async.wait_group` line, the baseline
+     none and no `cp.async`), then both kernels through their entry
+     points;
  11. the LEO loop at full qwen2-0.5b width: `loss_fn` (B 4 x S 1024, bf16)
      under attention_impl="plain" and "kernel" on the card, on the weights
      and batches of every seed of LOSS_SEEDS, each loss held to the f32 loss
@@ -199,7 +204,9 @@ def attention_pairs(s: int, window, causal: bool = True) -> int:
 def ptxas_report(log: str, marker: str):
     """Registers and spill bytes (stores + loads) of each function in the
     compiler's `-Xptxas -v` output whose mangled name holds `marker`,
-    keyed by its template arguments (`ILi64ELi32E` -> "64,32")."""
+    keyed by its template arguments: the element type where there is one,
+    then the integers and booleans (`ILi64ELi32E` -> "64,32",
+    `I13__nv_bfloat16Li4ELb1E` -> "bf16,4,1")."""
     rows, name = {}, None
     for line in log.splitlines():
         found = re.search(r"Function properties for (\S+)", line)
@@ -208,7 +215,10 @@ def ptxas_report(log: str, marker: str):
             continue
         if name is None:
             continue
-        key = ",".join(re.findall(r"Li(\d+)E", name)) or name
+        tail = name.split(marker, 1)[1]
+        dtype = ["bf16"] if tail.startswith("I13__nv_bfloat16") else \
+            ["f32"] if tail.startswith("If") else []
+        key = ",".join(dtype + re.findall(r"L[ib](\d+)E", tail)) or name
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
         if spill:
@@ -802,8 +812,9 @@ def profile_decode(torch, np, cfg, params, ServeEngine, Request, ticks: int):
 
 def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     """K3 against `rmsnorm_plain` element by element at K2's tolerances
-    (f32 1e-5, bf16 one bf16 step), timed beside K2 and `F.rms_norm` on the
-    same inputs, and the eager call of each kernel."""
+    (f32 1e-5, bf16 one bf16 step) and against K2 bit for bit, timed beside
+    K2 and `F.rms_norm` on the same inputs, and the eager call of each
+    kernel and of `F.rms_norm`."""
     dtype = getattr(torch, dt_name)
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = (0.5 * torch.randn((r, d), generator=gen, device="cuda")).to(dtype)
@@ -816,6 +827,10 @@ def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     case = f"rmsnorm_baseline {dt_name} R{r} D{d}"
     require(torch.isfinite(out.float()).all().item(), f"{case}: non-finite")
     require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
+    # one per-lane order of the sum of squares and one shuffle tree in both
+    # kernels: the same bits on every input both take
+    require(torch.equal(out, ops.rmsnorm_pipelined(x, scale)),
+            f"{case}: the baseline and the pipelined kernel differ")
     row = {"case": case, "max_abs_err": err, "tol": tol}
     row["bound_ms"], row["bound_by"] = bound(4.0 * r * d, (2 * r * d + d) *
                                              x.element_size(), dt_name)
@@ -828,29 +843,35 @@ def check_rmsnorm_baseline(torch, ops, F, dt_name: str, r: int, d: int):
     row["call_ms"] = call_ms(torch, lambda: ops.rmsnorm_baseline(x, scale))
     row["pipelined_call_ms"] = call_ms(torch, lambda: ops.rmsnorm_pipelined(
         x, scale))
+    row["library_call_ms"] = call_ms(torch, lambda: F.rms_norm(
+        x, (d,), weight=scale, eps=1e-5))
     row["baseline_over_pipelined"] = row["ms"] / row["pipelined_ms"]
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol}), ms {row['ms']:.4f}"
           f", pipelined ms {row['pipelined_ms']:.4f} (baseline/pipelined "
-          f"{row['baseline_over_pipelined']:.3f}), plain_ms "
+          f"{row['baseline_over_pipelined']:.3f}, the same bits), plain_ms "
           f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f}, "
           f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); eager call "
           f"ms: baseline {row['call_ms']:.4f}, pipelined "
-          f"{row['pipelined_call_ms']:.4f}")
+          f"{row['pipelined_call_ms']:.4f}, F.rms_norm "
+          f"{row['library_call_ms']:.4f}")
     return row
 
 
 def run_case_study(torch, ops, core, build, csrc: Path, measured):
     """The paper's section VI-D(b) study on the card's own code: the PTX of
     csrc/rmsnorm.cu through the PTX front-end, both kernels diagnosed on
-    `nvidia_h100_sxm` in bf16 (K2 at 8 rows a block, K3 at D 896's
-    instantiation, 32 values a lane).  The pipelined kernel must show `mem_waitcnt` edges, its wait
+    `nvidia_h100_sxm` in bf16, each at the instantiation bf16 D 896 takes
+    (`lane_chunks`: 16-byte chunks a lane; K3's 16-byte loads).  The
+    pipelined kernel must show `mem_waitcnt` edges, its wait
     attributed to the `cp.async.wait_group` line of csrc/rmsnorm.cu; the
     baseline must show none.  Then the study's measured half: each kernel
     through its entry point (`rmsnorm_op`, `rmsnorm_baseline_op`) at R 4096,
     D 896, bf16, with the launch counts zeroed just before and read just
     after; LEO's estimate is printed beside the card's times."""
     from repro_torch.core.ptx_frontend import find_entry
+    from repro_torch.kernels.rmsnorm import lane_chunks
 
+    chunks = lane_chunks(896, 2)  # the instantiations bf16 D 896 launches
     t0 = time.perf_counter()
     ptx_path = build.ptx("rmsnorm.cu")
     text = ptx_path.read_text()
@@ -858,8 +879,10 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
     source_lines = (csrc / "rmsnorm.cu").read_text().splitlines()
     rows = {}
     for name, kernel, extra in (
-            ("rmsnorm_pipelined", "rmsnorm_pipelined_kernel", ("Li8E",)),
-            ("rmsnorm_baseline", "rmsnorm_baseline_kernel", ("Li32E",))):
+            ("rmsnorm_pipelined", "rmsnorm_pipelined_kernel",
+             (f"Li{chunks}E",)),
+            ("rmsnorm_baseline", "rmsnorm_baseline_kernel",
+             (f"Li{chunks}ELb1E",))):
         entry = find_entry(text, kernel, "bfloat16", *extra)
         t0 = time.perf_counter()
         module = core.from_ptx(text, entry, name=kernel)
@@ -882,6 +905,8 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
             "shared_memory_ops": sum(
                 1 for i in module.all_instructions()
                 if i.opcode.startswith(("ld.shared", "st.shared"))),
+            "cp_async": sum(1 for i in module.all_instructions()
+                            if i.opcode.startswith("cp.async")),
             "analysis_s": seconds,
             "top_chain": [f"{link.opcode} {link.source}"
                           for link in an.chains[0].links] if an.chains
@@ -896,6 +921,10 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
                 f"attributed to {site}, not the cp.async.wait_group line")
     require(base["mem_waitcnt_edges"] == 0, f"case study: the baseline "
             f"kernel shows {base['mem_waitcnt_edges']} mem_waitcnt edges")
+    require(base["cp_async"] == 0, f"case study: the baseline kernel's PTX "
+            f"holds {base['cp_async']} cp.async instructions")
+    require("cp.async.wait_group 1" in text, "case study: no "
+            "`cp.async.wait_group 1` in the PTX of rmsnorm.cu")
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     x = (0.5 * torch.randn((4096, 896), generator=gen, device="cuda")).to(
@@ -1443,6 +1472,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import HEAD_DIMS, TC_BLOCK_K
+    from repro_torch.kernels.rmsnorm import LANE_CHUNKS
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
     from repro_torch.models import xlstm as xlstm_module
@@ -1485,6 +1515,23 @@ def main(argv=None) -> int:
         r.get("spill_bytes") == 0 and r.get("registers") for r in
         tc.values()), f"phase 2: bf16 flash attention instantiations "
             f"{tc}: each must be reported with 0 spill bytes")
+    # K2 and K3: by dtype and chunks a lane (0: a wide row read twice),
+    # K3 also by its 16-byte (1) or value-by-value (0, chunks 0 only)
+    # instantiation
+    rms_ptxas = {}
+    for marker, per_dtype in (("rmsnorm_pipelined_kernel",
+                               len(LANE_CHUNKS) + 1),
+                              ("rmsnorm_baseline_kernel",
+                               len(LANE_CHUNKS) + 2)):
+        rep = rms_ptxas[marker] = ptxas_report(log.read_text(), marker)
+        print(f"  {marker}, ptxas by dtype,chunks[,vec]: "
+              + ", ".join(f"{key} {r.get('registers')} registers "
+                          f"{r.get('spill_bytes')} spill bytes"
+                          for key, r in sorted(rep.items())))
+        require(len(rep) == 2 * per_dtype and all(
+            r.get("spill_bytes") == 0 and r.get("registers") for r in
+            rep.values()), f"phase 2: {marker} instantiations {rep}: each "
+                f"must be reported with 0 spill bytes")
 
     # phase 3
     print("phase 3: kernels against their plain versions")
@@ -1529,7 +1576,8 @@ def main(argv=None) -> int:
            for d in (896, 1600) for r in (8, 4096)
            for dt in ("bfloat16", "float32")]
     # f32 rows of h2o-danube-3-4b (3840) and glm4-9b / phi3.5-moe (4096):
-    # K2 in a ring of 7 rows a stage, K3 by its two-pass kernel
+    # 32 chunks a lane, scale in shared memory beside a ring of 7 or 6
+    # rows a stage (K2) or read as the row is scaled (K3)
     wide_rms = [check_rmsnorm(torch, ops, F, "float32", r, d)
                 for d in (3840, 4096) for r in (8, 4096)]
     wide_base = [check_rmsnorm_baseline(torch, ops, F, "float32", r, d)
@@ -1724,7 +1772,8 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_seconds": build_s, "flash_attention": fa, "rmsnorm": rms,
+        "build_seconds": build_s, "rmsnorm_ptxas": rms_ptxas,
+        "flash_attention": fa, "rmsnorm": rms,
         "ssm_scan": scan, "wide_rmsnorm": wide_rms,
         "wide_rmsnorm_baseline": wide_base, "prefill": prefill,
         "serve": serve,

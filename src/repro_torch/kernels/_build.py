@@ -41,11 +41,17 @@ SIGNATURES = {
                                   _I64, _I64, _I64, _I64, _I64, _F32, _P],
     "repro_flash_attention_tc_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      _I64, _I64, _I64, _I64, _I64, _F32, _P],
-    # dtype, x, scale, out, R, D, eps, stream
-    "repro_rmsnorm_baseline_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32, _P],
-    # dtype, x, scale, out, R, D, eps, rows a row block, grid, stream
+    # dtype, x, scale, out, R, D, eps, chunks a lane, 16-byte loads, stream
+    "repro_rmsnorm_baseline_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32, _I64,
+                                   _INT, _P],
+    # dtype, x, scale, out, R, D, eps, chunks a lane, rows a stage, scale
+    # in shared memory, grid, stream
     "repro_rmsnorm_pipelined_fwd": [_INT, _P, _P, _P, _I64, _I64, _F32,
-                                    _I64, _I64, _P],
+                                    _I64, _I64, _INT, _I64, _P],
+    # dtype, D, chunks a lane, rows a stage, scale in shared memory, blocks
+    # an SM (out)
+    "repro_rmsnorm_pipelined_occupancy": [_INT, _I64, _I64, _I64, _INT,
+                                          ctypes.POINTER(_INT)],
     # dtype (a, bx, c), a, bx, c, y, B, S, din, N, stream
     "repro_ssm_scan_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _P],
@@ -174,6 +180,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream of `t`'s device, without
+    the `torch.cuda.Stream` object that `torch.cuda.current_stream` builds
+    on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -110,8 +110,11 @@ def test_flash_attention_bf16_edges(s, hd, window, causal, block_q,
 
 
 # qwen2-0.5b, hymba-1.5b, h2o-danube-3-4b, glm4-9b: in f32 the last two
-# take a ring of 7 rows a stage
-@pytest.mark.parametrize("d", [896, 1600, 3840, 4096])
+# keep scale in shared memory beside a ring of 7 or 6 rows a stage; f32
+# D 8192 (64 chunks a lane) is read twice from shared memory; f32 D 19368
+# is the widest row with scale in shared memory, 29056 the widest two of
+# which fit a block's shared memory (scale read as the row is scaled)
+@pytest.mark.parametrize("d", [896, 1600, 3840, 4096, 8192, 19368, 29056])
 @pytest.mark.parametrize("r", [8, 13, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm(r, d, dtype):
@@ -125,8 +128,11 @@ def test_rmsnorm(r, d, dtype):
            BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
 
 
-# above 2048 values a row, the two-pass kernel
-@pytest.mark.parametrize("d", [512, 896, 1600, 3840, 4096])
+# rows of 16-byte multiples take the 16-byte instantiations (f32 3840 and
+# 4096 hold 32 chunks a lane, f32 8192 is read twice); D 45 (90 or 180
+# bytes) and 1001 the kernel that moves one value at a time
+@pytest.mark.parametrize("d", [45, 512, 896, 1000, 1001, 1600, 3840, 4096,
+                               8192])
 @pytest.mark.parametrize("r", [8, 13, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_baseline(r, d, dtype):
@@ -138,6 +144,48 @@ def test_rmsnorm_baseline(r, d, dtype):
     assert ops.rmsnorm_baseline.launches == before + 1
     _close(out, ops.rmsnorm_plain(x, scale),
            BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
+
+
+# the phase-3 shapes of chip_smoke.py, and a wide bf16 row
+@pytest.mark.parametrize("dtype,r,d", [
+    (dt, r, d) for d in (896, 1600) for r in (8, 4096)
+    for dt in ("float32", "bfloat16")] + [
+    ("float32", r, d) for d in (3840, 4096) for r in (8, 4096)] + [
+    (dt, 13, 8192) for dt in ("float32", "bfloat16")] + [
+    ("bfloat16", 13, 16384), ("float32", 13, 29056)])
+def test_rmsnorm_kernels_return_the_same_bits(dtype, r, d):
+    """One per-lane order of the sum of squares and one shuffle tree in
+    both kernels: K2 and K3 agree bit for bit on every input both take."""
+    dev = _cuda()
+    x, scale = _inputs(7, [(r, d), (d,)], dtype, dev)
+    scale = 1.0 + 0.1 * scale
+    assert torch.equal(ops.rmsnorm_pipelined(x, scale),
+                       ops.rmsnorm_baseline(x, scale))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [896, 1600])
+def test_rmsnorm_off_a_16_byte_boundary(d, dtype):
+    """x contiguous but starting one value past a 16-byte boundary: the
+    baseline takes it value by value, to the same bits as on an aligned
+    copy; the pipelined kernel (cp.async) refuses it."""
+    dev = _cuda()
+    flat, scale = _inputs(8, [(8 * d + 1,), (d,)], dtype, dev)
+    scale = 1.0 + 0.1 * scale
+    x = flat[1:].view(8, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = ops.rmsnorm_baseline.launches
+    out = ops.rmsnorm_baseline(x, scale)
+    assert ops.rmsnorm_baseline.launches == before + 1
+    assert torch.equal(out, ops.rmsnorm_baseline(x.clone(), scale))
+    _close(out, ops.rmsnorm_plain(x, scale),
+           BF16_TOL if dtype == "bfloat16" else (1e-5, 0.0))
+    before = ops.rmsnorm_pipelined.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rmsnorm_pipelined(x, scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rmsnorm_pipelined(x.clone(), flat[1:d + 1])
+    assert ops.rmsnorm_pipelined.launches == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -10,6 +10,9 @@ in the Pallas kernel, of the probabilities).
 The CUDA kernels themselves are held against their plain versions on the
 card by `tests/test_torch_gpu.py`.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.rmsnorm import (check_rmsnorm_baseline,
                                          check_rmsnorm_pipelined, ring_rows)
 from repro_torch.models.attention import chunked_attention as t_chunked
@@ -113,16 +117,110 @@ class TestRmsnormPlain:
     @pytest.mark.parametrize("d", [3840, 4096])
     def test_checks_take_wide_f32_rows(self, d):
         """f32 rows of h2o-danube-3-4b (3840) and glm4-9b (4096), which both
-        CUDA wrappers refused for width before: the pipelined ring now takes
-        7 rows a stage instead of 8, and the baseline reads the row in two
-        passes.  Checked on fake CUDA tensors: no card is needed."""
+        CUDA wrappers refused for width before: a lane holds 32 chunks of
+        such a row but not scale's, so the pipelined ring keeps scale in
+        shared memory beside two stages of 7 (3840) or 6 (4096) rows
+        instead of 8; in bf16 a lane holds both and a stage 8 rows.
+        Checked on fake CUDA tensors: no card is needed."""
         with FakeTensorMode():
             x = torch.empty((4096, d), device="cuda")
             scale = torch.empty((d,), device="cuda")
             check_rmsnorm_pipelined(x, scale)
             check_rmsnorm_baseline(x, scale)
-        assert ring_rows(d, 4) == 7
+        assert ring_rows(d, 4) == {3840: 7, 4096: 6}[d]
         assert ring_rows(d, 2) == 8
+        assert trms.lane_chunks(d, 4) == 32 > trms.HOLD_CHUNKS
+        assert trms.lane_chunks(d, 2) == 16 == trms.HOLD_CHUNKS
+        assert trms.staged_scale(d, 4) and not trms.staged_scale(d, 2)
+
+    # (dtype, D): where the pipelined kernel keeps scale for rows a lane
+    # does not hold scale's chunks of, and the rows a ring stage then takes
+    @pytest.mark.parametrize("dtype,d,staged,rows", [
+        ("bfloat16", 4096, False, 8),     # held in registers
+        ("bfloat16", 8192, True, 6),      # 32 chunks a lane, scale staged
+        ("bfloat16", 16384, True, 3),     # read twice, scale staged
+        ("float32", 8192, True, 3),
+        ("float32", 19368, True, 1),      # the widest row staged
+        ("float32", 19376, False, 1),     # read as the row is scaled
+        ("float32", 29056, False, 1),     # the widest row two of fit
+    ])
+    def test_pipelined_stages_scale_where_it_fits(self, dtype, d, staged,
+                                                  rows):
+        itemsize = getattr(torch, dtype).itemsize
+        assert trms.staged_scale(d, itemsize) is staged
+        assert ring_rows(d, itemsize) == rows
+
+    # (dtype, R, D, x's storage offset in values): the instantiation each
+    # wrapper takes, the rows a ring stage holds, and whether the
+    # pipelined kernel refuses the input
+    @pytest.mark.parametrize("dtype,r,d,offset,chunks,vec,rows,refused", [
+        ("bfloat16", 4096, 896, 0, 4, True, 8, None),    # qwen2-0.5b
+        ("bfloat16", 8, 896, 0, 4, True, 2, None),       # its decode tick
+        ("bfloat16", 4096, 1600, 0, 7, True, 8, None),   # hymba-1.5b
+        ("bfloat16", 8, 768, 0, 3, True, 2, None),       # xlstm-125m
+        ("float32", 4096, 1600, 0, 13, True, 8, None),
+        ("float32", 13, 4096, 0, 32, True, 4, None),
+        ("float32", 8, 8192, 0, 0, True, 2, None),       # read twice
+        ("float32", 8, 29056, 0, 0, True, 1, None),      # the widest ring
+        ("float32", 8, 45, 0, 1, False, 0, "16-byte multiples"),
+        ("bfloat16", 13, 1001, 0, 4, False, 0, "16-byte multiples"),
+        ("bfloat16", 8, 896, 1, 4, False, 0, "16-byte alignment"),
+        ("float32", 8, 1000, 2, 8, False, 0, "16-byte alignment"),
+        ("float32", 8, 1000, 4, 8, True, 2, None),       # 16 bytes in
+    ])
+    def test_wrappers_choose_the_instantiation(self, dtype, r, d, offset,
+                                               chunks, vec, rows, refused):
+        """What each wrapper launches for an input, from its shape and
+        where it starts: the 16-byte or the value-by-value baseline, the
+        chunks a lane holds (0: read twice), and the pipelined ring's rows
+        a stage (a short call spread over SPREAD blocks); or the pipelined
+        check's refusal.  On fake CUDA tensors: no card is needed."""
+        tdtype = getattr(torch, dtype)
+        itemsize = tdtype.itemsize
+        with FakeTensorMode():
+            flat = torch.empty((r * d + offset,), device="cuda", dtype=tdtype)
+            x = flat.as_strided((r, d), (d, 1), offset)
+            scale = torch.empty((d,), device="cuda", dtype=tdtype)
+            assert x.is_contiguous() and x.storage_offset() == offset
+            check_rmsnorm_baseline(x, scale)
+            if refused:
+                with pytest.raises(ValueError, match=refused):
+                    check_rmsnorm_pipelined(x, scale)
+            else:
+                check_rmsnorm_pipelined(x, scale)
+        assert trms.lane_chunks(d, itemsize) == chunks
+        assert trms.vectors(d * itemsize, offset * itemsize, 0) is vec
+        if not refused:
+            assert trms.stage_rows(r, d, itemsize) == rows
+
+    def test_plan_constants_match_the_cuda_source(self):
+        """The wrapper's plan names the instantiations and block sizes that
+        csrc/rmsnorm.cu builds: the cases of `by_chunks` (0 aside), the
+        most chunks a lane holds, the chunks a lane holds beside scale's,
+        the rows a stage and a baseline block."""
+        src = (Path(trms.__file__).parent.parent / "csrc" /
+               "rmsnorm.cu").read_text()
+        cases = [int(n) for n in re.findall(
+            r"case (\d+): return Op<T, \1>::run\(a\);", src)]
+        assert cases == [0, *trms.LANE_CHUNKS]
+
+        def const(pattern):
+            return int(re.search(pattern, src).group(1))
+        assert const(r"constexpr int kMaxChunks = (\d+);") == \
+            trms.LANE_CHUNKS[-1]
+        assert const(r"kHoldScale = CHUNKS > 0 && CHUNKS <= (\d+);") == \
+            trms.HOLD_CHUNKS
+        assert const(r"constexpr int kMaxRows = (\d+);") == \
+            trms.ROWS_PER_STAGE
+        assert const(r"constexpr int kBaseRows = (\d+);") == trms.BASE_ROWS
+
+    def test_ring_grid_is_capped_by_residency(self):
+        """One block a row block, up to the blocks the card holds at once;
+        past that each block walks further row blocks through its ring."""
+        assert trms.ring_grid(4096, 8, 3 * 132) == 396
+        assert trms.ring_grid(4096, 8, 6 * 132) == 512
+        assert trms.ring_grid(8, 2, 3 * 132) == 4
+        assert trms.ring_grid(4097, 8, 10_000) == 513
 
     def test_pipelined_check_refuses_a_row_two_of_which_do_not_fit(self):
         """f32 D 29184: two rows are 233,472 bytes, above the 232,448 a
