@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero and no phase catches another's
 error:
   1. the card's name and power limit, torch/CUDA versions; TF32 off;
   2. build the kernel library from src/repro_torch/csrc with nvcc; every
-     instantiation of flash attention's bf16 tensor-core body and of the
+     instantiation of flash attention's bf16 tensor-core body, of the
      two RMSNorm kernels (by dtype, chunks a lane and, for the baseline,
-     16-byte or value-by-value access) must report 0 spill bytes, and their
-     registers are printed;
+     16-byte or value-by-value access), of the sLSTM scan (by dtype, batch
+     rows a tile and gate columns a lane) and of the chunkwise mLSTM's two
+     passes must report 0 spill bytes, and their registers are printed;
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (qwen2-0.5b and hymba-1.5b; flash attention also at
      h2o-danube-3-4b's head dim 120, timed in bf16, and at the edges of its
@@ -60,7 +61,9 @@ error:
      the measured time, and the card's copy and bf16 matmul rates;
  12. the chunkwise mLSTM (K5) and sLSTM scan (K6) kernels against their
      plain versions at the reference's test grids and at xlstm-125m's
-     prefill shapes, f32 and bf16, with times and bounds;
+     prefill shapes, f32 and bf16, with times and bounds: K6's time a
+     step; K5's two launches timed apart, and K5 bf16 also on inputs
+     rotated past the 50 MB L2;
  13. prefill at full xlstm-125m width (12 layers: 9 mLSTM, 3 sLSTM; B 4 x
      S 1024): the bf16 main path with its launch counts (exactly 9 K5 and
      3 K6) and a `torch.profiler` pass over it, then the kernel path
@@ -93,6 +96,7 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM (dense): the roofline of `bound_ms`.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2**20  # the H100's L2
 ARCH = "qwen2-0.5b"
 HYBRID_ARCH = "hymba-1.5b"
 XLSTM_ARCH = "xlstm-125m"
@@ -1236,15 +1240,23 @@ def mlstm_flops(b: int, s: int, h: int, hd: int, chunk: int) -> float:
 
 
 def check_mlstm(torch, ops, dt_name: str, *, b, s, h, hd, chunk,
-                timed=False):
+                timed=False, rotate=False):
     """K5 against `mlstm_chunkwise_plain`, the step-by-step oracle, on the
     same inputs (the reference kernel test's distribution: normal q, k /
     sqrt(hd), v and log_i; log_f = log_sigmoid(normal + 2)).  f32: 1e-4
     absolute + 1e-4 relative, the reference kernel test's tolerance (the
     chunkwise form against the step-by-step one, summed in other orders).
     bf16 inputs: both compute in f32 and round the result to bf16, so they
-    are held one bf16 step apart (`compare`)."""
+    are held one bf16 step apart (`compare`).
+
+    Timed: the call in a CUDA graph (`time_ms`), its two launches apart
+    (states, outputs: CUDA events around each, `mlstm_chunkwise_passes`),
+    and, with `rotate`, the graph of calls cycling through copies of the
+    inputs that together exceed the 50 MB L2, so that each call reads its
+    inputs from device memory (the bound counts them read once from
+    there)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.mlstm_scan import mlstm_chunkwise_passes
     dtype = getattr(torch, dt_name)
     gen = torch.Generator(device="cuda").manual_seed(12)
 
@@ -1280,14 +1292,29 @@ def check_mlstm(torch, ops, dt_name: str, *, b, s, h, hd, chunk,
             q, k, v, log_i, log_f, chunk=chunk)
         row["ms"] = time_ms(torch, kernel)
         row["call_ms"] = call_ms(torch, kernel)
+        row["states_ms"], row["outputs_ms"] = mlstm_chunkwise_passes(
+            q, k, v, log_i, log_f, chunk=chunk)
+        if rotate:
+            copies = [tuple(t.clone() for t in (q, k, v, log_i, log_f))
+                      for _ in range(-(-2 * L2_BYTES // nbytes))]
+            turn = iter(range(1 << 62))
+            row["rotated_ms"] = time_ms(torch, lambda: ops.mlstm_chunkwise(
+                *copies[next(turn) % len(copies)], chunk=chunk))
+            row["rotated_copies"] = len(copies)
+            del copies
         # a Python loop of S steps: a few samples of one call each
         row["plain_ms"] = call_ms(torch, lambda: ops.mlstm_chunkwise_plain(
             q, k, v, log_i, log_f), samples=3, reps=1)
         row["library_ms"] = None  # no single PyTorch call computes it
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
-          + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
-             f"plain_ms {row['plain_ms']:.2f}, library_ms none, bound_ms "
-             f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
+          + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}; states "
+             f"{row['states_ms']:.4f} + outputs {row['outputs_ms']:.4f}, "
+             f"events)" + (f", inputs rotated past L2 over "
+                           f"{row['rotated_copies']} copies "
+                           f"{row['rotated_ms']:.4f}" if rotate else "")
+             + f", plain_ms {row['plain_ms']:.2f}, library_ms none, "
+             f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
+             if timed else ""))
     return row
 
 
@@ -1326,11 +1353,13 @@ def check_slstm(torch, ops, dt_name: str, *, b, s, d, timed=False):
                                                  nbytes, dt_name)
         row["ms"] = row["call_ms"] = call_ms(
             torch, lambda: ops.slstm_scan(xg, r), samples=11)
+        row["us_a_step"] = row["ms"] * 1e3 / s
         row["plain_ms"] = call_ms(torch, lambda: ops.slstm_scan_plain(
             xg, r), samples=3, reps=1)
         row["library_ms"] = None  # no single PyTorch call computes it
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
-          + (f", ms {row['ms']:.4f} (eager calls, events), plain_ms "
+          + (f", ms {row['ms']:.4f} (eager calls, events; "
+             f"{row['us_a_step']:.3f} us a step), plain_ms "
              f"{row['plain_ms']:.2f}, library_ms none, bound_ms "
              f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
     return row
@@ -1473,6 +1502,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import HEAD_DIMS, TC_BLOCK_K
     from repro_torch.kernels.rmsnorm import LANE_CHUNKS
+    from repro_torch.kernels.slstm_scan import MAX_ROWS as SLSTM_ROWS
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
     from repro_torch.models import xlstm as xlstm_module
@@ -1532,6 +1562,23 @@ def main(argv=None) -> int:
             r.get("spill_bytes") == 0 and r.get("registers") for r in
             rep.values()), f"phase 2: {marker} instantiations {rep}: each "
                 f"must be reported with 0 spill bytes")
+    # K6 by dtype, batch rows a tile and gate columns a lane (2, 4, 8);
+    # K5's two passes, bf16 on the tensor cores, f32 on the CUDA cores
+    xlstm_ptxas = {}
+    for marker, count in (("slstm_scan_kernel", 2 * SLSTM_ROWS * 3),
+                          ("mlstm_state_tc_kernel", 1),
+                          ("mlstm_state_kernel", 1),
+                          ("mlstm_out_tc_kernel", 1),
+                          ("mlstm_out_kernel", 1)):
+        rep = xlstm_ptxas[marker] = ptxas_report(log.read_text(), marker)
+        print(f"  {marker}, ptxas: " + ", ".join(
+            f"{key if len(key) < 16 else ''} {r.get('registers')} "
+            f"registers {r.get('spill_bytes')} spill bytes"
+            for key, r in sorted(rep.items())))
+        require(len(rep) == count and all(
+            r.get("spill_bytes") == 0 and r.get("registers") for r in
+            rep.values()), f"phase 2: {marker} instantiations {rep}: "
+                f"{count}, each reported with 0 spill bytes")
 
     # phase 3
     print("phase 3: kernels against their plain versions")
@@ -1656,7 +1703,7 @@ def main(argv=None) -> int:
           "plain versions")
     # the main path's shapes first: xlstm-125m's prefill in its bf16
     mlstm = [check_mlstm(torch, ops, dt, b=4, s=1024, h=4, hd=192,
-                         chunk=128, timed=True)
+                         chunk=128, timed=True, rotate=dt == "bfloat16")
              for dt in ("bfloat16", "float32")]
     mlstm += [check_mlstm(torch, ops, dt, b=2, s=s_, h=h_, hd=hd_,
                           chunk=ch)
@@ -1773,6 +1820,7 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build_s, "rmsnorm_ptxas": rms_ptxas,
+        "xlstm_ptxas": xlstm_ptxas,
         "flash_attention": fa, "rmsnorm": rms,
         "ssm_scan": scan, "wide_rmsnorm": wide_rms,
         "wide_rmsnorm_baseline": wide_base, "prefill": prefill,

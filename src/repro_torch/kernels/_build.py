@@ -55,11 +55,12 @@ SIGNATURES = {
     # dtype (a, bx, c), a, bx, c, y, B, S, din, N, stream
     "repro_ssm_scan_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _P],
-    # dtype (q, k, v), q, k, v, log_i, log_f, out, B, S, H, hd, chunk,
-    # stream
-    "repro_mlstm_chunkwise_fwd": [_INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                                  _I64, _I64, _I64, _P],
-    # dtype (xg, r), xg, r, out, hbuf, state, B, S, D, stream
+    # dtype (q, k, v), q, k, v, log_i, log_f, out, state scratch C, n, m,
+    # B, S, H, hd, chunk, passes (1 states, 2 outputs, 3 both), stream
+    "repro_mlstm_chunkwise_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I64, _I64, _I64, _I64, _I64, _INT, _P],
+    # dtype (xg, r), xg, r, out, hbuf (h and the step counter), state, B,
+    # S, D, stream
     "repro_slstm_scan_fwd": [_INT, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                              _P],
 }

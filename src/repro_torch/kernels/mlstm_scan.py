@@ -4,23 +4,27 @@ Replaces the Pallas TPU kernel `repro/kernels/mlstm_scan.py::
 mlstm_chunkwise` (body `_mlstm_kernel`): xLSTM's matrix-memory recurrence,
 stabilised chunk by chunk, with the (hd, hd) state `C`, the normaliser `n`
 and the stabiliser `m` carried in f32 from one chunk to the next.  The CUDA
-source is `csrc/mlstm_scan.cu`: one block walks the chunks of one (b, h) in
-order and owns 32 of C's value columns (a (b, h) is split over
-ceil(hd / 32) blocks, so C fits in shared memory at hd 192); inside a chunk
-it computes the gated scores of the whole chunk and the inter-chunk read of
-C, then updates C, all in f32 on the CUDA cores.
+source is `csrc/mlstm_scan.cu`, two launches a call:
+1. the states: blocks that each hold a tile of C walk the chunks of their
+   (b, h) in order and store C, n and m as they stand before each chunk in
+   f32 scratch that this wrapper allocates (`state_floats`);
+2. the outputs: one block per (b, h, chunk, column block), all in parallel.
+bf16 runs both on the tensor cores (`mma.sync`, f32 accumulation; k w, C
+and the gated scores each split into two bf16 parts), f32 on the CUDA
+cores.
 
 Bound on the H100, as `chip_smoke.py` reports it: the larger of the
-operations, `B*H*(S/L)*(4*L^2*hd + 4*L*hd^2)` for a chunk of L steps, over
-the peak rate for the inputs' type (989 TFLOP/s bf16, 67 TFLOP/s f32), and
-the bytes of q, k, v, out and the gates over 3.35 TB/s.  At xlstm-125m's
+operations, `B*H*(S/L)*(2*L*(L+1)*hd + 4*L*hd^2)` for a chunk of L steps,
+over the peak rate for the inputs' type (989 TFLOP/s bf16, 67 TFLOP/s f32),
+and the bytes of q, k, v, out and the gates over 3.35 TB/s.  At xlstm-125m's
 prefill the bytes bound it in bf16 and the operations in f32.
 
 `mlstm_chunkwise` takes CPU tensors to `mlstm_chunkwise_plain`, the
 step-by-step oracle, and CUDA tensors to the kernel; on anything else, or on
 a CUDA input the kernel does not take, it raises.  It never falls back.
 `check_mlstm_chunkwise` (also the wrapper's `check`) raises what the wrapper
-raises for a CUDA input, and launches nothing.
+raises for a CUDA input, and launches nothing.  `mlstm_chunkwise_passes`
+times the two launches apart for `chip_smoke.py`; it counts no launch.
 """
 from __future__ import annotations
 
@@ -29,12 +33,13 @@ import torch
 from . import _build
 
 MAX_CHUNK = 128  # kMaxChunk in csrc/mlstm_scan.cu
-_COLS, _SLICE = 32, 32  # kCols and kSlice there
+_COLS, _SLICE = 32, 32  # kCols and kQkSlice there
 
 
 def smem_bytes(chunk: int, hd: int) -> int:
-    """Shared memory of one block at `chunk` and head dim `hd` (the
-    `Layout` of csrc/mlstm_scan.cu)."""
+    """Shared memory of one f32 output block at `chunk` and head dim `hd`
+    (the `Layout` of csrc/mlstm_scan.cu).  The bf16 output block and the
+    state blocks take a fixed size at any hd."""
     lp = -(-chunk // 4) * 4
     ls = lp + 1
     v = hd * _COLS + hd + 2 * _SLICE * ls + lp * ls
@@ -70,6 +75,14 @@ def mlstm_chunkwise_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1).to(q.dtype)
 
 
+def state_floats(b: int, s: int, h: int, hd: int, chunk: int):
+    """Element counts of the f32 state scratch: C (B, H, S/L, hd, hd), n
+    (B, H, S/L, hd) and m (B, H, S/L), each chunk's slot the state before
+    it."""
+    slots = b * h * (s // chunk)
+    return slots * hd * hd, slots * hd, slots
+
+
 def check_mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           log_i: torch.Tensor, log_f: torch.Tensor, *,
                           chunk: int = 64) -> None:
@@ -102,7 +115,10 @@ def check_mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= run <= MAX_CHUNK or s % run:
         raise ValueError(f"mlstm_chunkwise: chunk {chunk} (run at {run}) "
                          f"must be 1..{MAX_CHUNK} and divide S={s}")
-    if smem_bytes(run, hd) > _build.MAX_SMEM:
+    if (s // run) * -(-hd // _COLS) >= 1 << 31:
+        raise ValueError(f"mlstm_chunkwise: {s // run} chunks of head dim "
+                         f"{hd} exceed the grid")
+    if q.dtype == torch.float32 and smem_bytes(run, hd) > _build.MAX_SMEM:
         raise ValueError(f"mlstm_chunkwise: chunk {run} at head dim {hd} "
                          f"needs {smem_bytes(run, hd)} bytes of shared "
                          f"memory, above {_build.MAX_SMEM}")
@@ -120,15 +136,50 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_chunkwise_plain(q, k, v, log_i, log_f)
     lib = _build.library()
     check_mlstm_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
-    b, s, h, hd = q.shape
-    out = torch.empty_like(q)
-    err = lib.repro_mlstm_chunkwise_fwd(
-        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        log_i.data_ptr(), log_f.data_ptr(), out.data_ptr(), b, s, h, hd,
-        min(chunk, s), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "mlstm_chunkwise")
+    out, scratch = _outputs(q, chunk)
+    _build.check(_launch(lib, q, k, v, log_i, log_f, out, scratch, chunk, 3),
+                 "mlstm_chunkwise")
     mlstm_chunkwise.launches += 1
     return out
+
+
+def _outputs(q: torch.Tensor, chunk: int):
+    b, s, h, hd = q.shape
+    scratch = [torch.empty(n, dtype=torch.float32, device=q.device)
+               for n in state_floats(b, s, h, hd, min(chunk, s))]
+    return torch.empty_like(q), scratch
+
+
+def _launch(lib, q, k, v, log_i, log_f, out, scratch, chunk: int,
+            passes: int) -> int:
+    b, s, h, hd = q.shape
+    return lib.repro_mlstm_chunkwise_fwd(
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        log_i.data_ptr(), log_f.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in scratch), b, s, h, hd, min(chunk, s),
+        passes, _build.current_stream(q))
+
+
+def mlstm_chunkwise_passes(q, k, v, log_i, log_f, *, chunk: int = 64,
+                           reps: int = 10):
+    """Device ms of each of the kernel's two launches (states, outputs) on
+    CUDA inputs, CUDA events around each launch, the median of `reps`
+    calls; a timing aid for `chip_smoke.py` that counts no launch."""
+    lib = _build.library()
+    check_mlstm_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
+    out, scratch = _outputs(q, chunk)
+    times = ([], [])
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        for i, passes in enumerate((1, 2)):
+            _build.check(_launch(lib, q, k, v, log_i, log_f, out, scratch,
+                                 chunk, passes), "mlstm_chunkwise")
+            ev[i + 1].record()
+        ev[2].synchronize()
+        for i in range(2):
+            times[i].append(ev[i].elapsed_time(ev[i + 1]))
+    return tuple(sorted(t[1:])[len(t[1:]) // 2] for t in times)
 
 
 mlstm_chunkwise.launches = 0

@@ -5,10 +5,15 @@ Replaces the Pallas TPU kernel `repro/kernels/slstm_scan.py::slstm_scan`
 h_{t-1} r` split into the i, f, z, o gates, exponential gating stabilised by
 `m`, `h = sigmoid(o) c / max(n, 1)`.  The CUDA source is
 `csrc/slstm_scan.cu`: a persistent kernel whose blocks split the D units
-over the SMs, each keeping its units' columns of r in shared memory in f32
-for the whole sequence, with one grid-wide barrier a step.  That barrier is
-a cooperative launch (`cudaLaunchCooperativeKernel`) of at most one block an
-SM: a block owns `ceil(D / SMs)` units.
+over the SMs (a block owns `ceil(D / SMs)` units), each keeping its units'
+columns of r in shared memory in f32 for the whole sequence.  A step
+is latency-bound, so the blocks meet through a step counter, not a grid
+barrier: each warp that owns units of h publishes them with a release add,
+and a block waits on the count with acquire loads; the recurrent state
+stays in registers; warps split D and lanes the gate columns, so r and h
+are each read from shared memory once a step.  The launch is cooperative
+(`cudaLaunchCooperativeKernel`), which guarantees the co-residency the
+spinning needs: at most one block an SM.
 
 Bound on the H100, as `chip_smoke.py` reports it: the larger of the
 operations, `8*B*S*D^2` (the recurrent product) over the peak rate for the
@@ -29,7 +34,9 @@ import torch.nn.functional as F
 from . import _build
 
 H100_SMS = 132  # SMs of the H100 that a capture without a card is priced for
-MAX_UNITS = 32  # kMaxUnits in csrc/slstm_scan.cu: units a block
+MAX_UNITS = 16  # 4 * units <= kColLanes * kMaxSlots in csrc/slstm_scan.cu
+MAX_ROWS = 8  # kMaxRows there: batch rows a tile
+WARPS = 8  # kWarps there
 
 
 def _sm_count(device: torch.device) -> int:
@@ -40,10 +47,37 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def smem_bytes(d: int, units: int) -> int:
-    """Shared memory of one block owning `units` units (`smem_floats` in
-    csrc/slstm_scan.cu: r's 4*units columns, 8 rows of h, their sums)."""
-    return 4 * (4 * units * d + 8 * d + 8 * 4 * units)
+def _padded(d: int) -> int:
+    """D rounded up to whole 16-byte vectors of f32."""
+    return -(-d // 4) * 4
+
+
+def smem_bytes(d: int, units: int, rows: int) -> int:
+    """Shared memory of one block owning `units` units, with `rows` batch
+    rows a tile (`smem_bytes` in csrc/slstm_scan.cu: r's 4*units columns in
+    f32, the rows of h padded to whole vectors, two buffers of the 8 warps'
+    partial gate sums), whatever the inputs' dtype."""
+    return 4 * _padded(d) * (4 * units + rows) + \
+        2 * 4 * WARPS * rows * 4 * units
+
+
+def plan(b: int, d: int, sms: int):
+    """(units a block, rows a tile) of the launch, as the kernel's host code
+    picks them; rows is 0 where not even one row fits beside r."""
+    units = -(-d // sms)
+    rows = min(MAX_ROWS, b)
+    while rows and smem_bytes(d, units, rows) > _build.MAX_SMEM:
+        rows -= 1
+    if rows:
+        tiles = -(-b // rows)
+        rows = -(-b // tiles)
+    return units, rows
+
+
+def hbuf_floats(b: int, d: int) -> int:
+    """f32 scratch of the exchange: two buffers of h (2, B, D padded to a
+    16-byte vector) and the 64-bit step counter."""
+    return 2 * b * _padded(d) + 2
 
 
 def slstm_step(xg_t: torch.Tensor, rec: torch.Tensor, c, n, m):
@@ -97,11 +131,11 @@ def check_slstm_scan(xg: torch.Tensor, r: torch.Tensor) -> None:
     d = d4 // 4
     if not (1 <= b <= 1 << 20 and s >= 1 and 1 <= d <= 1 << 20):
         raise ValueError(f"slstm_scan: B={b}, S={s}, D={d} out of range")
-    units = -(-d // _sm_count(xg.device))  # the launch's rule
-    if units > MAX_UNITS or smem_bytes(d, units) > _build.MAX_SMEM:
+    units, rows = plan(b, d, _sm_count(xg.device))
+    if units > MAX_UNITS or not rows:
         raise ValueError(f"slstm_scan: D={d} leaves a block {units} units "
                          f"(at most {MAX_UNITS}) whose columns of r must fit "
-                         f"in shared memory")
+                         f"in shared memory beside one row of h")
 
 
 def slstm_scan(xg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -114,12 +148,16 @@ def slstm_scan(xg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     b, s, d4 = xg.shape
     d = d4 // 4
     out = torch.empty((b, s, d), dtype=xg.dtype, device=xg.device)
-    hbuf = torch.zeros((2, b, d), dtype=torch.float32, device=xg.device)
-    state = torch.empty((3, b, d), dtype=torch.float32, device=xg.device)
+    hbuf = torch.zeros(hbuf_floats(b, d), dtype=torch.float32,
+                       device=xg.device)
+    _, rows = plan(b, d, _sm_count(xg.device))
+    # c, n, m leave registers only when the batch takes several tiles
+    state = torch.empty((3, b, d) if rows < b else (0,),
+                        dtype=torch.float32, device=xg.device)
     err = lib.repro_slstm_scan_fwd(
         _build.DTYPE_CODE[xg.dtype], xg.data_ptr(), r.data_ptr(),
         out.data_ptr(), hbuf.data_ptr(), state.data_ptr(), b, s, d,
-        torch.cuda.current_stream(xg.device).cuda_stream)
+        _build.current_stream(xg))
     _build.check(err, "slstm_scan")
     slstm_scan.launches += 1
     return out

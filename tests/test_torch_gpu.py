@@ -403,6 +403,8 @@ def _mlstm_inputs(b, s, h, hd, dtype, device):
     (2, 64, 2, 32, 16), (2, 128, 1, 64, 32),   # the reference grid
     (4, 1024, 4, 192, 128),                    # xlstm-125m's prefill
     (1, 200, 3, 48, 40),                       # no multiple of 4 or of 32
+    (2, 8, 2, 32, 1), (2, 136, 2, 64, 17),     # chunks of 1 and 17, 8 each
+    (2, 256, 2, 16, 32), (2, 256, 2, 200, 32),  # head dims 16 and 200
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlstm_chunkwise(b, s, h, hd, chunk, dtype):
@@ -421,10 +423,16 @@ def test_mlstm_chunkwise(b, s, h, hd, chunk, dtype):
     (4, 1024, 768),              # xlstm-125m's prefill
     (3, 50, 100),                # D no multiple of the SMs' share
     (11, 20, 64),                # more batch rows than one staged tile
+    (9, 20, 64),                 # one row past a tile
+    (1, 1, 768),                 # one step
+    (4, 30, 1204),               # the widest D the first design took
+    (2, 16, "widest"),           # the widest D this one takes
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_slstm_scan(b, s, d, dtype):
     dev = _cuda()
+    if d == "widest":
+        d = _widest_slstm_d(dev)
     gen = torch.Generator(device=dev).manual_seed(15)
     dt = getattr(torch, dtype)
     xg = torch.randn((b, s, 4 * d), generator=gen, device=dev).to(dt)
@@ -435,6 +443,63 @@ def test_slstm_scan(b, s, d, dtype):
     assert out.dtype == dt and out.shape == (b, s, d)
     _close(out, ops.slstm_scan_plain(xg, r),
            BF16_TOL if dtype == "bfloat16" else (1e-5, 1e-5))
+
+
+def _widest_slstm_d(dev):
+    from repro_torch.kernels import slstm_scan as k6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widest = 0
+    for d in range(1, 4096):
+        units, rows = k6.plan(1, d, sms)
+        if units <= k6.MAX_UNITS and rows:
+            widest = d
+    return widest
+
+
+def test_slstm_scan_refuses_a_grid_that_is_not_co_resident(monkeypatch):
+    """K6 spins on other blocks' h, so every block must be resident: on 66
+    SMs D 1024 f32 needs 16 units a block, whose columns of r do not fit in
+    shared memory beside one row of h.  The wrapper raises, launches
+    nothing and returns; the C entry point, handed the card's own SMs and a
+    D one block an SM cannot hold, refuses the launch itself."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import slstm_scan as k6
+    dev = _cuda()
+    monkeypatch.setattr(k6, "_sm_count", lambda device: 66)
+    xg = torch.zeros((2, 4, 4096), device=dev)
+    r = torch.zeros((1024, 4096), device=dev)
+    before = ops.slstm_scan.launches
+    with pytest.raises(ValueError, match="slstm_scan: D=1024"):
+        ops.slstm_scan(xg, r)
+    assert ops.slstm_scan.launches == before
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d = _widest_slstm_d(dev) + 1
+    assert not k6.plan(1, d, sms)[1] or k6.plan(1, d, sms)[0] > \
+        k6.MAX_UNITS
+    xg = torch.zeros((1, 4, 4 * d), device=dev)
+    r = torch.zeros((d, 4 * d), device=dev)
+    out = torch.full((1, 4, d), 7.0, device=dev)
+    hbuf = torch.zeros(k6.hbuf_floats(1, d), device=dev)
+    err = _build.library().repro_slstm_scan_fwd(
+        0, xg.data_ptr(), r.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+        hbuf.data_ptr(), 1, 4, d, _build.current_stream(xg))
+    torch.cuda.synchronize()
+    assert err == 720  # cudaErrorCooperativeLaunchTooLarge
+    assert (out == 7.0).all()
+
+
+def test_mlstm_passes_count_no_launch():
+    """The two-launch timing aid of K5 counts nothing; a wrapper call
+    counts one, whatever its launches."""
+    from repro_torch.kernels.mlstm_scan import mlstm_chunkwise_passes
+    dev = _cuda()
+    args = _mlstm_inputs(1, 256, 2, 64, "bfloat16", dev)
+    before = ops.mlstm_chunkwise.launches
+    states_ms, outputs_ms = mlstm_chunkwise_passes(*args, chunk=64, reps=2)
+    assert states_ms > 0 and outputs_ms > 0
+    assert ops.mlstm_chunkwise.launches == before
+    ops.mlstm_chunkwise(*args, chunk=64)
+    assert ops.mlstm_chunkwise.launches == before + 1
 
 
 def test_xlstm_prefill_kernel_path_matches_plain_path():

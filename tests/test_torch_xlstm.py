@@ -117,14 +117,21 @@ def test_slstm_plain_matches_pallas_and_ref(s, d, chunk, dtype):
 
 
 
-@pytest.mark.parametrize("sms,takes", [(132, True), (66, False)])
-def test_slstm_check_spreads_d_over_the_devices_sms(monkeypatch, sms, takes):
+@pytest.mark.parametrize("sms,d,takes", [
+    (132, 1024, True), (66, 1024, False),
+    (132, 1320, True), (132, 1321, False),  # the widest D on 132 SMs
+])
+def test_slstm_check_spreads_d_over_the_devices_sms(monkeypatch, sms, d,
+                                                     takes):
     """K6 gives a block ceil(D / SMs) units, whose columns of r sit in its
-    shared memory: D 1024 fits on 132 SMs (8 units, 161 KiB) and not on 66
-    (16 units, 290 KiB).  The check reads the SM count of the device, as the
-    launch does; here it runs inside a capture, as `kernel_call` runs it."""
+    shared memory (in f32, whatever the inputs' dtype) beside at least one
+    row of h: D 1024 fits on 132 SMs (8 units, 128 KiB of r) and not on 66
+    (16 units, 256 KiB); the widest D on 132 SMs is 1320 (10 units, 206
+    KiB), where the first design of the kernel took 1204.  The check reads the SM count of the
+    device, as the launch does; here it runs inside a capture, as
+    `kernel_call` runs it."""
     monkeypatch.setattr(k6, "_sm_count", lambda device: sms)
-    xg, r = torch.rand((1, 2, 4096)), torch.rand((1024, 4096))
+    xg, r = torch.rand((1, 2, 4 * d)), torch.rand((d, 4 * d))
 
     def scan(a, b):
         return kernel_call(tops.slstm_scan, a, b,
@@ -134,7 +141,7 @@ def test_slstm_check_spreads_d_over_the_devices_sms(monkeypatch, sms, takes):
         module = capture(scan, xg, r, device="cuda")
         assert module.kernel_calls == {"slstm_scan": 1}
     else:
-        with pytest.raises(ValueError, match="slstm_scan: D=1024"):
+        with pytest.raises(ValueError, match=f"slstm_scan: D={d}"):
             capture(scan, xg, r, device="cuda")
 
 # -- the mixers ---------------------------------------------------------------
