@@ -69,7 +69,17 @@ error:
      3 K6) and a `torch.profiler` pass over it, then the kernel path
      against the forced-plain path in f32, and what K5 fed `log_f` one
      step late gives;
- 14. continuous-batching serve of xlstm-125m at full width, as phase 5.
+ 14. continuous-batching serve of xlstm-125m at full width, as phase 5;
+ 15. the train step at full qwen2-0.5b width (B 4 x S 1024, bf16,
+     `TrainOptions()`: remat "group", chunk 512), batches from the port's
+     `DataPipeline`: first one step's gradients in f32, the kernel path
+     against the forced-plain path, held to a limit drawn from the right
+     paths' spread in the same run (GRAD_FACTOR), with K1's output cut
+     off from autograd and a backward whose band is one key off outside
+     it (bf16 printed, not gated), every leaf given a gradient; then
+     TRAIN_STEPS steps, each launching K1 48 and K2 97 times, the loss,
+     grad norm and lr_scale of each, a held batch's loss falling, ms a
+     step, tokens/s, peak memory and one profiled step.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -1476,6 +1486,294 @@ def run_xlstm_prefill(torch, ops, cfg, params, flags, make_prefill_step,
             "late_forget_gate": {"max": late_err, "top1": late_top1}}
 
 
+# Phase 15: the train step at full qwen2-0.5b width, B 4 x S 1024, under
+# `TrainOptions()` (remat "group": every layer's forward runs again in the
+# backward, so K1 launches 2 x 24 = 48 times a step and K2 2 x 48 + 1 = 97,
+# the final norm being outside the checkpointed layers).
+TRAIN_B, TRAIN_S = 4, 1024
+TRAIN_STEPS = 10
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 2  # the run leaves warmup at step 2
+# The gradient gate, f32: one step's gradients on the weights of seed 0 and
+# the pipeline's first batch.  The truth is the forced-plain path.  A path's
+# gap is the largest, over the param leaves, of the relative L2 gap of the
+# leaf's gradient from the truth's.  The rule, as phase 11's: the kernel
+# path's gap may be at most GRAD_FACTOR times the largest gap of the right
+# paths that are not the kernel path (the plain attention with K2, and K1's
+# plain version at the call site), measured in the same run; two known
+# faults must fall outside it: K1's output cut off from autograd (every
+# wrapper's output on the card before the autograd route) and a backward
+# that recomputes attention with its causal band one key off.  bf16 is
+# printed beside it, not gated (ROADMAP C-watch 5).  The card (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md section 6, the train step) read 2.90e-6 for
+# the right paths and 2.86e-6 for the kernel path, 0.99x (all three run K2
+# where the truth runs the plain norm, and their gaps agree within 2%); the
+# faults read 1.0 (wq, wk, wv and ln1 get no gradient) and 0.73.  The
+# factor is phase 11's: room for one more draw of the same rounding noise.
+GRAD_FACTOR = LOSS_FACTOR
+# kinds of device activity in phase 15's profiled step, by words of the
+# kernel's name (the first kind that matches); the rest is "other"
+# (elementwise passes and reductions)
+STEP_KINDS = (("K1", ("flash_attention",)), ("K2", ("rmsnorm",)),
+              ("products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+              ("copies and fills", ("copy", "Memcpy", "Memset", "Fill")))
+
+
+def detached_kernel_call(torch):
+    """A known fault for phase 15's gate: K1 called as before the autograd
+    route, its output a fresh tensor with no `grad_fn`."""
+    def call(kernel, *args, plain=None, plain_fn=None, **kwargs):
+        with torch.no_grad():
+            return kernel(*args, **kwargs)
+    return call
+
+
+def loss_grads(torch, loss_fn, cfg, params, batch, options):
+    """The train step's loss and gradients (`options.remat`, `chunk`) by
+    `torch.autograd.grad`, by leaf ("groups/0/attn/wq"); a leaf that
+    receives none gets None."""
+    from torch.utils._pytree import tree_flatten_with_path, tree_unflatten
+    pairs, spec = tree_flatten_with_path(params)
+    tracked = [p.detach().requires_grad_() for _, p in pairs]
+    loss = loss_fn(tree_unflatten(tracked, spec), cfg, batch,
+                   chunk=options.chunk, remat=options.remat)
+    grads = torch.autograd.grad(loss, tracked, allow_unused=True)
+    return loss.item(), {
+        "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+        g for (path, _), g in zip(pairs, grads)}
+
+
+def grad_paths(torch, ops, cfg, params, batch, flags, loss_fn,
+               attention_module, options, truth=None):
+    """Each path's gradients (see GRAD_FACTOR), as relative L2 gaps per
+    leaf from `truth` (the forced-plain path's own, when None), with its
+    loss and launch counts."""
+    real_chunked = attention_module.chunked_attention
+    paths = {
+        "plain": ({"force_plain": True}, None),
+        "attention_plain": ({"attention_impl": "plain"}, None),
+        "k1_plain": ({}, ("flash_attention", plain_attention(
+            ops.flash_attention_plain))),
+        "kernel": ({}, None),
+        "fault_detached": ({}, ("kernel_call", detached_kernel_call(torch))),
+        "fault_band_backward": ({}, ("chunked_attention",
+                                     shifted_keys_attention(real_chunked))),
+    }
+    out = {}
+    for name, (path_flags, patch) in paths.items():
+        saved = None
+        if patch is not None:
+            saved = getattr(attention_module, patch[0])
+            setattr(attention_module, patch[0], patch[1])
+        try:
+            ops.reset_launch_counts()
+            with flags(**path_flags):
+                loss, grads = loss_grads(torch, loss_fn, cfg, params, batch,
+                                         options)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            bodies = dict(ops.flash_attention.body_launches)
+        finally:
+            if patch is not None:
+                setattr(attention_module, patch[0], saved)
+        if truth is None and name == "plain":
+            truth = {leaf: g.float() for leaf, g in grads.items()}
+        gaps = {}
+        for leaf, t in truth.items():
+            g = grads[leaf]
+            g = torch.zeros_like(t) if g is None else g.float()
+            gaps[leaf] = ((g - t).norm() / t.norm()).item()
+        out[name] = {"loss": loss, "gaps": gaps, "max_gap": max(gaps.values()),
+                     "no_grad": [leaf for leaf, g in grads.items()
+                                 if g is None],
+                     "launches": counts, "flash_attention_bodies": bodies}
+        if name == "kernel":
+            out[name]["zero_qkv"] = [
+                leaf for leaf, g in grads.items() if g is not None and
+                leaf.rsplit("/", 1)[-1] in ("wq", "wk", "wv") and
+                not bool(g.any())]
+        del grads
+    return out, truth
+
+
+def run_train(torch, ops, cfg, flags, loss_fn, init_params,
+              attention_module, runtime, optim, data):
+    """Phase 15: the f32 gradient gate (GRAD_FACTOR), bf16 gaps printed;
+    then TRAIN_STEPS bf16 train steps at full width from the port's data
+    pipeline, each step's launches counted, a held batch's loss before and
+    after, ms a step, tokens/s, peak memory and one profiled step."""
+    options = runtime.TrainOptions(warmup_steps=TRAIN_WARMUP,
+                                 total_steps=TRAIN_STEPS)
+    pipe = data.DataPipeline(data.SyntheticTokenDataset(data.SyntheticConfig(
+        cfg.vocab_size, TRAIN_S, seed=0)), TRAIN_B)
+    batch = pipe.device_batch(0)
+    layers, norms = cfg.n_layers, 4 * cfg.n_layers + 1
+    one_step = {"flash_attention": 2 * layers, "rmsnorm_pipelined": norms}
+
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = init_params(cfg32,
+                           torch.Generator(device="cuda").manual_seed(0))
+    f32, truth = grad_paths(torch, ops, cfg32, params32, batch, flags,
+                            loss_fn, attention_module, options)
+    del params32
+    params16 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    bf16, _ = grad_paths(torch, ops, cfg, params16, batch, flags, loss_fn,
+                         attention_module, options, truth=truth)
+    del params16, truth
+    torch.cuda.empty_cache()
+    spread = max(f32[n]["max_gap"] for n in ("attention_plain", "k1_plain"))
+    limit = GRAD_FACTOR * spread
+    leaves = list(f32["plain"]["gaps"])
+    print(f"  gradient gate, f32, one step B{TRAIN_B} S{TRAIN_S} (remat "
+          f"{options.remat!r}, chunk {options.chunk}): right paths other "
+          f"than the kernel path reach {spread:.3e}; limit {GRAD_FACTOR:g}x "
+          f"= {limit:.3e}")
+    for level, paths in (("f32", f32), ("bf16 (gaps from the f32 truth; not "
+                                        "gated)", bf16)):
+        print(f"  {level}: loss " + ", ".join(
+            f"{n} {p['loss']:.6f}" for n, p in paths.items()))
+        print("    largest gap: " + ", ".join(
+            f"{n} {p['max_gap']:.3e}" for n, p in paths.items()))
+        for leaf in leaves:
+            print(f"    {leaf}: " + ", ".join(
+                f"{p['gaps'][leaf]:.2e}" for p in paths.values()))
+    for level, paths, dtype_body in (("f32", f32, "cuda_core"),
+                                     ("bf16", bf16, "tensor_core")):
+        k = paths["kernel"]
+        require(not k["no_grad"] and not k["zero_qkv"],
+                f"train {level}: the kernel path leaves {k['no_grad']} "
+                f"without a gradient and {k['zero_qkv']} all zeros")
+        require(all(k["launches"][n] == c for n, c in one_step.items()) and
+                k["flash_attention_bodies"][dtype_body] == 2 * layers,
+                f"train {level}: the kernel path's launches "
+                f"{k['launches']}, bodies {k['flash_attention_bodies']}, "
+                f"expected {one_step} on the {dtype_body} body")
+        require(all(math.isfinite(p["loss"]) for p in paths.values()),
+                f"train {level}: a loss is not finite")
+    require(f32["kernel"]["max_gap"] <= limit,
+            f"train: the kernel path's f32 gradients are "
+            f"{f32['kernel']['max_gap']} from the plain path's, beyond "
+            f"{limit}")
+    for fault in ("fault_detached", "fault_band_backward"):
+        require(f32[fault]["max_gap"] > limit,
+                f"train: {fault} moves the f32 gradients by "
+                f"{f32[fault]['max_gap']}, within {limit}: the gate cannot "
+                f"see it")
+
+    state = runtime.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    step = runtime.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                   options)
+    held = pipe.device_batch(10**6)  # a batch no step trains on
+    held_before = loss_fn(state["params"], cfg, held).item()
+    print(f"  {TRAIN_STEPS} bf16 steps of make_train_step: lr {TRAIN_LR:g}, "
+          f"warmup_steps {TRAIN_WARMUP}, total_steps {TRAIN_STEPS}, remat "
+          f"{options.remat!r}, chunk {options.chunk}, clip_norm "
+          f"{options.clip_norm:g}; batches from DataPipeline(SyntheticToken"
+          f"Dataset(seq {TRAIN_S}, seed 0), global batch {TRAIN_B})")
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    bodies = dict.fromkeys(ops.flash_attention.body_launches, 0)
+    rows = []
+    batches = pipe(0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_STEPS):
+            b = next(batches)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for n, c in counts.items():
+                totals[n] += c
+            for n, c in ops.flash_attention.body_launches.items():
+                bodies[n] += c
+            row = {"step": i, "seconds": seconds, "launches": counts,
+                   **{k: v.item() for k, v in metrics.items()}}
+            rows.append(row)
+            print(f"    step {i}: loss {row['loss']:.6f}, grad_norm "
+                  f"{row['grad_norm']:.6f}, lr_scale {row['lr_scale']:.6f}, "
+                  f"{seconds * 1e3:.3f} ms; K1 "
+                  f"{counts['flash_attention']}, K2 "
+                  f"{counts['rmsnorm_pipelined']}")
+            require(math.isfinite(row["loss"]) and
+                    math.isfinite(row["grad_norm"]),
+                    f"train step {i}: loss or grad norm not finite")
+            require(all(counts[n] == c for n, c in one_step.items()) and
+                    ops.flash_attention.body_launches["tensor_core"] ==
+                    2 * layers, f"train step {i}: launches {counts}, "
+                    f"expected {one_step}, all K1 on the tensor-core body")
+        peak = torch.cuda.max_memory_allocated()
+        from torch.profiler import ProfilerActivity, profile
+        b = next(batches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        batches.close()
+    device, busy_us, top = device_time(torch, prof, wall_us, top=12)
+    kinds = {}
+    for e in device:
+        kind = next((k for k, words in STEP_KINDS
+                     if any(w in e.name for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    # the host-side operators whose own launches take the most device time
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU and
+                    e.self_device_time_total > 0),
+                   key=lambda kv: -kv[1])[:12]
+    held_after = loss_fn(state["params"], cfg, held).item()
+    ms = statistics.median(r["seconds"] for r in rows[1:]) * 1e3
+    result = {
+        "B": TRAIN_B, "S": TRAIN_S, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "warmup_steps": TRAIN_WARMUP, "total_steps": TRAIN_STEPS,
+        "remat": options.remat, "chunk": options.chunk,
+        "grad_gate": {"factor": GRAD_FACTOR, "spread": spread,
+                      "limit": limit, "f32": f32, "bf16": bf16},
+        "rows": rows, "ms_per_step": ms,
+        "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+        "peak_memory_bytes": peak,
+        "held_loss": {"before": held_before, "after": held_after},
+        "profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                    "device_idle_share": (1 - busy_us / wall_us)
+                    if device else None,
+                    "device_activities": len(device),
+                    "device_ms_by_kind": kinds,
+                    "top_device_ms": {n: t / 1e3 for n, t in top},
+                    "top_operator_self_device_ms": dict(by_op)},
+        "launches": totals, "flash_attention_bodies": bodies}
+    print(f"  {ms:.3f} ms a step (median of steps 1-{TRAIN_STEPS - 1}), "
+          f"{result['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; held-batch loss {held_before:.6f} -> "
+          f"{held_after:.6f}")
+    prof_row = result["profile"]
+    if device:
+        print(f"  a profiled step: {prof_row['wall_ms']:.3f} ms wall, device "
+              f"busy {prof_row['device_busy_ms']:.3f} ms, idle share "
+              f"{prof_row['device_idle_share']:.4f}, {len(device)} device "
+              f"activities; device ms by kind: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(kinds.items(),
+                                                    key=lambda kv: -kv[1])))
+        for name, t in prof_row["top_device_ms"].items():
+            print(f"    {t:.4f} ms  {name[:100]}")
+        print("  operators by their own launches' device time: " + ", ".join(
+            f"{n} {t:.3f}" for n, t in by_op))
+    else:
+        print("  train profile: the profiler saw no device activity; device "
+              "idle share not measured")
+    require(held_after < held_before,
+            f"train: the held batch's loss {held_before} -> {held_after} did "
+            f"not fall in {TRAIN_STEPS} steps")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -1510,6 +1808,9 @@ def main(argv=None) -> int:
                                     loss_fn)
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
+    import repro_torch.data as data
+    import repro_torch.optim as optim
+    import repro_torch.runtime as runtime
 
     # phase 1
     smi = subprocess.run(
@@ -1735,12 +2036,20 @@ def main(argv=None) -> int:
     del xparams
     torch.cuda.empty_cache()
 
+    # phase 15
+    print(f"phase 15: the train step at full {ARCH} width (B {TRAIN_B} x S "
+          f"{TRAIN_S}, {cfg.dtype}, AdamW with f32 master weights), the "
+          f"f32 gradient gate first")
+    trained = run_train(torch, ops, cfg, flags, loss_fn, init_params,
+                        attention_module, runtime, optim, data)
+    torch.cuda.empty_cache()
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
     main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
     main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
-                 xserve)
+                 xserve, trained)
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -1828,7 +2137,7 @@ def main(argv=None) -> int:
         "hybrid_prefill": hprefill, "hybrid_serve": hserve,
         "ring_wrap": ring, "rmsnorm_baseline": base, "case_study": study,
         "leo_loop": loop, "mlstm_chunkwise": mlstm, "slstm_scan": slstm,
-        "xlstm_prefill": xprefill, "xlstm_serve": xserve,
+        "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -34,7 +34,8 @@ One `Instruction` per dispatched op, in the single entry computation:
   _apply_fused_regions` prices the region as on-chip.  FLOPs are those of
   the plain path by construction.  No other fusion is applied: eager
   PyTorch launches each aten op as its own kernel, and that is what the card
-  runs.
+  runs.  Outside a capture `kernel_call` also gives the kernel its gradient
+  (`kernels/autograd.py`).
 
 Python loops (the model's layers, the attention's key blocks) are unrolled
 in the capture, so every trip count is 1.
@@ -53,6 +54,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
+from ..kernels.autograd import kernel_apply
 from .fusion_model import FUSED_REGION_MARK, _apply_fused_regions
 from .isa import Computation, Instruction, Module, OpClass, ShapeInfo
 
@@ -329,16 +331,39 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
 _ACTIVE: Optional[_Recorder] = None  # the recorder of the running capture
 
 
-def kernel_call(kernel: Callable, *args, plain: Callable[[], Any],
+def kernel_call(kernel: Callable, *args,
+                plain: Optional[Callable[[], Any]] = None,
+                plain_fn: Optional[Callable[..., Any]] = None,
                 **kwargs) -> Any:
     """`kernel(*args, **kwargs)`: the models call each hand kernel's wrapper
-    through here.  Under `capture` nothing launches: `kernel.check(*args,
-    **kwargs)` raises what the wrapper would raise, then `plain()` runs and
-    its ops are recorded as one fused region of the kernel."""
-    if _ACTIVE is None:
-        return kernel(*args, **kwargs)
-    kernel.check(*args, **kwargs)
-    return _ACTIVE.region(kernel.__name__, plain)
+    through here, with the kernel's plain version in one of two forms:
+    `plain_fn`, a function of the kernel's positional tensors (what the
+    models pass), or `plain`, a function of no argument that closes over
+    them.  Give one of the two.
+
+    * Under `capture` nothing launches: `kernel.check(*args, **kwargs)`
+      raises what the wrapper would raise, then the plain version runs and
+      its ops are recorded as one fused region of the kernel.
+    * When grad mode is on and an argument requires grad, the kernel runs
+      through `kernels.autograd.KernelFunction`: forward the kernel, backward
+      the gradient of `plain_fn` recomputed on the saved inputs (the
+      gradient the reference takes).  That needs the tensor form.
+    * Otherwise (serving, prefill) the wrapper is called as it is."""
+    if (plain is None) == (plain_fn is None):
+        raise TypeError(f"kernel_call({kernel.__name__}): give the plain "
+                        f"version as exactly one of plain and plain_fn")
+    if _ACTIVE is not None:
+        kernel.check(*args, **kwargs)
+        return _ACTIVE.region(kernel.__name__, plain or functools.partial(
+            plain_fn, *args))
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        if plain_fn is None:
+            raise ValueError(f"{kernel.__name__}: a gradient through the "
+                             f"kernel needs its plain version as a function "
+                             f"of its tensors (plain_fn)")
+        return kernel_apply(kernel, plain_fn, *args, **kwargs)
+    return kernel(*args, **kwargs)
 
 
 def capture(fn: Callable, *args, name: Optional[str] = None,

@@ -190,6 +190,19 @@ def current_stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse inputs that autograd tracks while grad mode is on: a kernel's
+    output is a fresh tensor with no `grad_fn`, so a direct call would cut
+    the gradient of everything behind it.  The models call the kernels
+    through `core.torch_frontend.kernel_call`, whose autograd route calls
+    the wrapper with grad mode off (`kernels/autograd.py`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input requires grad and the kernel has "
+                         f"no backward of its own; call it through "
+                         f"kernel_call, which gives it the plain version's "
+                         f"gradient")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

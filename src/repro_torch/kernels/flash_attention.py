@@ -98,6 +98,7 @@ def check_flash_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: Optional[int] = None, block_q: int = 64,
                           block_k: int = 64) -> None:
+    _build.check_no_grad("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}; "
@@ -146,7 +147,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 64, block_k: int = 64) -> torch.Tensor:
     """q (B,S,H,hd); k/v (B,S,Kv,hd) with H % Kv == 0. Returns (B,S,H,hd).
 
-    Forward only: nothing in the port trains through it yet."""
+    The kernel has no backward of its own: the models reach it through
+    `kernel_call`, which differentiates `chunked_attention` instead, and a
+    CUDA input that requires grad under grad mode is refused."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     lib = _build.library()
@@ -162,7 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = getattr(lib, ENTRY_POINTS[body])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
         k.shape[2], hd_run, block_q, block_k, int(causal), window or 0,
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+        scale, _build.current_stream(q))
     _build.check(err, f"flash_attention ({body} body)")
     flash_attention.launches += 1
     flash_attention.body_launches[body] += 1

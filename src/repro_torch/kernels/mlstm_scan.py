@@ -86,6 +86,7 @@ def state_floats(b: int, s: int, h: int, hd: int, chunk: int):
 def check_mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           log_i: torch.Tensor, log_f: torch.Tensor, *,
                           chunk: int = 64) -> None:
+    _build.check_no_grad("mlstm_chunkwise", q, k, v, log_i, log_f)
     for name, t in (("q", q), ("k", k), ("v", v), ("log_i", log_i),
                     ("log_f", log_f)):
         if t.device.type != "cuda" or t.device != q.device:

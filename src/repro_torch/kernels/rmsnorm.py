@@ -149,6 +149,7 @@ def ring_plan(dtype: torch.dtype, d: int, device_index: int,
 
 
 def _check_cuda(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
+    _build.check_no_grad(name, x, scale)
     if not x.is_cuda or scale.device != x.device:
         raise ValueError(f"{name}: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")

@@ -114,6 +114,7 @@ def slstm_scan_plain(xg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 def check_slstm_scan(xg: torch.Tensor, r: torch.Tensor) -> None:
+    _build.check_no_grad("slstm_scan", xg, r)
     for name, t in (("xg", xg), ("r", r)):
         if t.device.type != "cuda" or t.device != xg.device:
             raise ValueError(f"slstm_scan: {name} is on {t.device}; both "

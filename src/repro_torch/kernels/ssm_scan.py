@@ -38,6 +38,7 @@ def ssm_scan_plain(a: torch.Tensor, bx: torch.Tensor,
 
 def check_ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
                    chunk: int = 16) -> None:
+    _build.check_no_grad("ssm_scan", a, bx, c)
     for name, t in (("a", a), ("bx", bx), ("c", c)):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"ssm_scan: {name} is on {t.device}; all "
@@ -81,7 +82,7 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, *,
     err = lib.repro_ssm_scan_fwd(
         _build.DTYPE_CODE[a.dtype], a.data_ptr(), bx.data_ptr(),
         c.data_ptr(), y.data_ptr(), b, s, din, n,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        _build.current_stream(a))
     _build.check(err, "ssm_scan")
     ssm_scan.launches += 1
     return y

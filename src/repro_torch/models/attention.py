@@ -122,11 +122,11 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     f = get_flags()
     if x.device.type == "cuda" and not f.force_plain and \
             f.attention_impl == "kernel":
-        # a capture records the plain path as the kernel's region
+        # a capture records the plain path as the kernel's region, and a
+        # gradient is the plain path's
         out = kernel_call(flash_attention, q, k, v, causal=True,
-                          window=window, plain=functools.partial(
-                              chunked_attention, q, k, v, chunk=chunk,
-                              window=window))
+                          window=window, plain_fn=functools.partial(
+                              chunked_attention, chunk=chunk, window=window))
     else:
         out = chunked_attention(q, k, v, chunk=chunk, window=window)
     return linear(out.reshape(b, s, h * hd), p["wo"])

@@ -1,4 +1,5 @@
-"""Carry weights and decode states across from the JAX package as numpy.
+"""Carry weights, train states and decode states across from the JAX
+package as numpy.
 
 The caller turns the reference's tree into numpy (`jax.tree.map(np.asarray,
 params)`); these functions return the same tree with torch tensors, so both
@@ -43,6 +44,19 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
         raise ValueError(f"embedding {tuple(table.shape)} does not match "
                          f"{cfg.name}: ({cfg.vocab_size}, {cfg.d_model})")
     return _tree(tree, device)
+
+
+def train_state_from_numpy(tree, cfg: ArchConfig, device="cuda"):
+    """The reference's whole train state (numpy leaves) as the port's:
+    `params` as `params_from_numpy` gives them, the AdamW state `opt`
+    (`mu`, `nu` and `master` trees in f32, `count` an int32 scalar), `step`
+    and, where the state has one, the error feedback `grad_ef` (f32)."""
+    state = {"params": params_from_numpy(tree["params"], cfg, device),
+             "opt": _tree(tree["opt"], device),
+             "step": _tree(tree["step"], device)}
+    if "grad_ef" in tree:
+        state["grad_ef"] = _tree(tree["grad_ef"], device)
+    return state
 
 
 def decode_state_from_numpy(tree, device="cuda"):

@@ -24,11 +24,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis in f32, cast back to x's dtype."""
     rows = x.reshape(-1, x.shape[-1])
-    plain = functools.partial(rmsnorm_plain, rows, scale, eps=eps)
+    plain = functools.partial(rmsnorm_plain, eps=eps)
     if rows.device.type == "cpu" or get_flags().force_plain:
-        return plain().reshape(x.shape)
+        return plain(rows, scale).reshape(x.shape)
     return kernel_call(rmsnorm_pipelined, rows, scale, eps=eps,
-                       plain=plain).reshape(x.shape)
+                       plain_fn=plain).reshape(x.shape)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,

@@ -12,7 +12,6 @@ state and is plain PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -72,8 +71,7 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     xin, z = xz[..., :din], xz[..., din:]
     a, bx, csel = _discretize(p, xin)
     if x.device.type == "cuda" and not get_flags().force_plain:
-        y = kernel_call(ssm_scan, a, bx, csel, plain=functools.partial(
-            ssm_scan_plain, a, bx, csel))
+        y = kernel_call(ssm_scan, a, bx, csel, plain_fn=ssm_scan_plain)
     else:
         y = ssm_scan_plain(a, bx, csel)
     return _readout(p, y, xin, z, x.dtype)

@@ -4,22 +4,27 @@ hybrid attention + SSM, and xLSTM blocks).
 Layers are described by (mixer, ffn) descriptors, run-length encoded into
 groups whose params carry a leading `reps` axis, exactly as in the reference,
 so a param tree converts leaf for leaf.  A Python loop over the layers of a
-group stands in for `lax.scan`.  The port runs the ("attn", "mlp"),
+group stands in for `lax.scan`, and a checkpoint around each layer for
+`jax.checkpoint` of its body under remat.  The port runs the ("attn", "mlp"),
 ("hybrid", "mlp"), ("mlstm", "none") and ("slstm", "none") descriptors,
 with full or sliding-window attention; the other mixers and FFNs raise
 `NotImplementedError`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
+from .flags import ModelFlags, flags, get_flags
 from .layers import embed, mlp, rmsnorm, unembed
 
 Params = Dict
@@ -153,6 +158,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree, reps: int) -> List:
+    """The `reps` layers of a group-stacked tree, each a tree of views.
+    One `torch.unbind` a leaf: its backward stacks the layers' gradients
+    once, where indexing layer by layer (`_layer`) would add one zero-filled
+    gradient of the whole stack a layer."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, reps) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(reps)]
+    return torch.unbind(tree, 0)
+
+
 def _logits(params: Params, x: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -178,22 +194,71 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
 
 # -- forward -----------------------------------------------------------------
 
+# the reference's remat policies (`transformer.py::forward`); "group" and
+# "full" checkpoint its scan body, which is one layer
+REMATS = ("none", "group", "full", "group_save_moe")
+
+
+def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
+           cfg: ArchConfig, positions: torch.Tensor,
+           chunk: int) -> torch.Tensor:
+    """One full-sequence layer."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _mixer(p, h, mixer, cfg, positions, chunk)
+    if ffn != "none":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(h, p["ffn"])
+    return x
+
+
+def _flagged_block(model_flags: ModelFlags, *args) -> torch.Tensor:
+    # the recomputation in the backward runs under the flags of the first
+    # pass, whatever is set when the backward runs: the same path, kernels
+    # and all
+    with flags(**dataclasses.asdict(model_flags)):
+        return _block(*args)
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward. tokens (B, S) int.  Returns (logits (B,S,V) f32,
-    aux_loss = 0).  Embedding front-ends (audio, vision) are a later
-    slice."""
+            chunk: int = 512,
+            remat: str = "group") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train/prefill forward. tokens (B, S) int.  Returns (logits (B,S,V)
+    f32, aux_loss = 0).  Embedding front-ends (audio, vision) are a later
+    slice.
+
+    `remat` is the reference's policy: "group" and "full" checkpoint each
+    layer (`torch.utils.checkpoint`, not reentrant), so the backward runs
+    the layer's forward again, kernels included; "none" keeps every
+    activation.  It applies only where autograd records (grad mode on and
+    a param that requires grad); serving and prefill run the layers as
+    they are.  "group_save_moe" waits for the MoE port."""
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} not in {REMATS}")
+    if remat == "group_save_moe":
+        raise NotImplementedError(
+            "remat='group_save_moe' saves the MoE output, and MoE is not "
+            "ported yet")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+    recompute = remat != "none" and records
+    model_flags = get_flags()
     for ((mixer, ffn), reps), stacked in zip(_ported_groups(cfg),
                                              params["groups"]):
-        for i in range(reps):
-            p = _layer(stacked, i)
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + _mixer(p, h, mixer, cfg, positions, chunk)
-            if ffn != "none":
-                h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-                x = x + mlp(h, p["ffn"])
+        # under autograd one unbind a leaf, whose backward is one stack;
+        # otherwise each layer's views are taken as the layer runs, so the
+        # first layer's launches need not wait for all of them
+        layers = (_unbind(stacked, reps) if records else
+                  (_layer(stacked, i) for i in range(reps)))
+        for layer in layers:
+            args = (layer, x, mixer, ffn, cfg, positions, chunk)
+            if recompute:
+                # the blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(_flagged_block, model_flags, *args,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _block(*args)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
@@ -201,13 +266,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # -- loss --------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict,
-            chunk: int = 512, aux_weight: float = 0.01) -> torch.Tensor:
+            chunk: int = 512, remat: str = "group",
+            aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL over `log_softmax(logits)` plus `aux_weight *
     aux`, as the reference's `loss_fn`.  batch: {"tokens", "labels"} (B, S)
-    int.  Forward only (the train step and its remat belong to a later
-    slice), so the reference's `remat` has no counterpart."""
+    int; `remat` as `forward`'s."""
     tokens = torch.as_tensor(batch["tokens"])
-    logits, aux = forward(params, cfg, tokens, chunk=chunk)
+    logits, aux = forward(params, cfg, tokens, chunk=chunk, remat=remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     logp = torch.log_softmax(logits, dim=-1)
     # -logp at each label (the reference's take_along_axis), by nll_loss:

@@ -128,12 +128,12 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"mlstm_forward: seq {s} % chunk {chunk} != 0")
-    plain = functools.partial(_mlstm_chunks, q, k, v, log_i, log_f, chunk)
+    plain = functools.partial(_mlstm_chunks, chunk=chunk)
     if x.device.type == "cuda" and not get_flags().force_plain:
         y = kernel_call(mlstm_chunkwise, q, k, v, log_i, log_f, chunk=chunk,
-                        plain=plain)
+                        plain_fn=plain)
     else:
-        y = plain()
+        y = plain(q, k, v, log_i, log_f)
     y = rmsnorm(y.reshape(b, s, din).to(x.dtype), p["norm"], cfg.norm_eps)
     y = y * F.silu(zgate)
     return linear(y, p["w_down"])
@@ -215,11 +215,11 @@ def _ffn(p: Params, y: torch.Tensor) -> torch.Tensor:
 def slstm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D)."""
     xg = linear(x, p["w_gates"])                       # (B, S, 4D)
-    plain = functools.partial(slstm_scan_plain, xg, p["r_gates"])
     if x.device.type == "cuda" and not get_flags().force_plain:
-        y = kernel_call(slstm_scan, xg, p["r_gates"], plain=plain)
+        y = kernel_call(slstm_scan, xg, p["r_gates"],
+                        plain_fn=slstm_scan_plain)
     else:
-        y = plain()
+        y = slstm_scan_plain(xg, p["r_gates"])
     return _ffn(p, y.to(x.dtype))
 
 

@@ -18,6 +18,7 @@ mLSTM in f32 is held to 1e-4 absolute and relative, the tolerance of
 step-by-step oracle).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -521,3 +522,164 @@ def test_xlstm_prefill_kernel_path_matches_plain_path():
         plain, _ = tt.forward(params, cfg, tokens=tokens)
     assert ops.launch_counts()["mlstm_chunkwise"] == 3
     _close(logits, plain, (1e-4, 1e-4))
+
+
+# -- gradients through the kernels (kernels/autograd.py) ----------------------
+
+def _tracked(seed, shapes, dtype, dev):
+    return [t.requires_grad_() for t in _inputs(seed, shapes, dtype, dev)]
+
+
+def _route_grads(out, inputs, seed):
+    """Gradients of a fixed random projection of `out`."""
+    gen = torch.Generator(out.device).manual_seed(seed)
+    weight = torch.randn(out.shape, generator=gen, device=out.device)
+    return torch.autograd.grad((out.float() * weight).sum(), inputs)
+
+
+@pytest.mark.parametrize("hd,window", [(64, None), (64, 100), (120, None),
+                                       (120, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_route_gradients(hd, window, dtype):
+    """K1 through `kernel_call` on inputs that require grad: the forward is
+    the kernel (one launch of its dtype's body, held to its plain version
+    as `test_flash_attention` holds it), the backward launches nothing and
+    equals autograd of `chunked_attention`, which it recomputes."""
+    from repro_torch.core.torch_frontend import kernel_call
+    from repro_torch.models.attention import chunked_attention
+    dev = _cuda()
+    q, k, v = _tracked(6, [(2, 256, 4, hd), (2, 256, 2, hd),
+                           (2, 256, 2, hd)], dtype, dev)
+    plain = functools.partial(chunked_attention, chunk=64, window=window)
+    before = ops.flash_attention.body_launches[BODY[dtype]]
+    out = kernel_call(ops.flash_attention, q, k, v, causal=True,
+                      window=window, plain_fn=plain)
+    assert out.grad_fn is not None
+    got = _route_grads(out, (q, k, v), 7)
+    assert ops.flash_attention.body_launches[BODY[dtype]] == before + 1
+    with torch.no_grad():
+        _close(out, ops.flash_attention_plain(q, k, v, window=window),
+               TOL[dtype])
+    want = _route_grads(plain(q, k, v), (q, k, v), 7)
+    for g, w in zip(got, want):
+        _close(g, w, (1e-6, 1e-5) if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [896, 1600])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_route_gradients(d, dtype):
+    from repro_torch.core.torch_frontend import kernel_call
+    dev = _cuda()
+    x, scale = _tracked(8, [(512, d), (d,)], dtype, dev)
+    plain = functools.partial(ops.rmsnorm_plain, eps=1e-5)
+    before = ops.rmsnorm_pipelined.launches
+    out = kernel_call(ops.rmsnorm_pipelined, x, scale, eps=1e-5,
+                      plain_fn=plain)
+    got = _route_grads(out, (x, scale), 9)
+    assert ops.rmsnorm_pipelined.launches == before + 1
+    with torch.no_grad():
+        _close(out, plain(x, scale), TOL[dtype])
+    want = _route_grads(plain(x, scale), (x, scale), 9)
+    for g, w in zip(got, want):
+        _close(g, w, (1e-6, 1e-5) if dtype == "float32" else BF16_TOL)
+
+
+def test_each_wrapper_refuses_an_input_that_requires_grad():
+    """Called directly, no wrapper returns a result cut off from inputs
+    that autograd tracks; with grad mode off it launches as before."""
+    dev = _cuda()
+    cases = {
+        "flash_attention": [(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)],
+        "rmsnorm_pipelined": [(8, 896), (896,)],
+        "rmsnorm_baseline": [(8, 896), (896,)],
+        "ssm_scan": [(1, 16, 32, 16), (1, 16, 32, 16), (1, 16, 16)],
+        "mlstm_chunkwise": [(1, 64, 2, 32)] * 3 + [(1, 64, 2)] * 2,
+        "slstm_scan": [(1, 8, 256), (64, 256)],
+    }
+    for name, shapes in cases.items():
+        fn = ops.KERNELS[name]
+        args = _tracked(10, shapes, "float32", dev)
+        before = fn.launches
+        with pytest.raises(ValueError, match="requires grad"):
+            fn(*args)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*args)
+        assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "hymba-1.5b", "xlstm-125m"])
+def test_loss_gradients_kernel_path_match_plain_path(arch):
+    """f32 smoke on the card: every param leaf gets a gradient through the
+    kernel path (K1 and K2; K4 in hymba; K5 and K6 in xLSTM, all under
+    remat "group", so each kernel launches twice a layer), each within
+    1e-3 of the forced-plain gradient's L2 norm."""
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    leaves, spec = torch.utils._pytree.tree_flatten(params)
+
+    def grads():
+        tracked = [p.detach().requires_grad_() for p in leaves]
+        loss = tt.loss_fn(spec.unflatten(tracked), cfg, batch, chunk=128)
+        return loss, torch.autograd.grad(loss, tracked)
+    ops.reset_launch_counts()
+    loss, got = grads()
+    counts = ops.launch_counts()
+    with flags(force_plain=True):
+        plain_loss, want = grads()
+    assert ops.launch_counts() == counts
+    layers = tt.layer_descriptors(cfg)
+    attends = sum(m in ("attn", "hybrid") for m, _ in layers)
+    assert counts["flash_attention"] == 2 * attends
+    assert counts["ssm_scan"] == 2 * sum(m == "hybrid" for m, _ in layers)
+    assert counts["mlstm_chunkwise"] == 2 * sum(m == "mlstm"
+                                                for m, _ in layers)
+    assert counts["slstm_scan"] == 2 * sum(m == "slstm" for m, _ in layers)
+    assert loss.item() == pytest.approx(plain_loss.item(), rel=1e-5)
+    for g, w in zip(got, want):
+        assert float(w.norm()) > 0
+        assert float((g - w).norm()) <= 1e-3 * float(w.norm())
+
+
+def test_train_step_kernel_path_matches_plain_path():
+    """Two steps of `make_train_step` on qwen2-0.5b smoke in f32 (the second
+    leaves warmup), kernel path against forced-plain path from one state:
+    loss and grad norm at rel 1e-5, params after at 1e-4 (AdamW magnifies
+    rounding where a gradient is near eps; `tests/test_torch_train.py`)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (TrainOptions, init_train_state,
+                                     make_train_step)
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("qwen2-0.5b")),
+                              dtype="float32")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), TrainOptions(
+        warmup_steps=1, total_steps=10, chunk=128))
+    gen = torch.Generator(dev).manual_seed(2)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                                 device=dev) for k in ("tokens", "labels")}
+               for _ in range(2)]
+    runs = {}
+    for force_plain in (False, True):
+        state = init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        ops.reset_launch_counts()
+        with flags(force_plain=force_plain):
+            state, m1 = step(state, batches[0])
+            state, m2 = step(state, batches[1])
+        runs[force_plain] = (state, (m1, m2), ops.launch_counts())
+    kernel, plain = runs[False], runs[True]
+    # two steps, each layer's K1 once forward and once recomputed
+    assert kernel[2]["flash_attention"] == 2 * 2 * cfg.n_layers
+    assert kernel[2]["rmsnorm_pipelined"] == 2 * (4 * cfg.n_layers + 1)
+    assert plain[2]["flash_attention"] == 0
+    for mk, mp in zip(kernel[1], plain[1]):
+        for key in ("loss", "grad_norm"):
+            assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-5)
+    for a, b in zip(torch.utils._pytree.tree_leaves(kernel[0]["params"]),
+                    torch.utils._pytree.tree_leaves(plain[0]["params"])):
+        _close(a, b, (1e-4, 0.0))

@@ -33,8 +33,9 @@ def _forbidden(name: str) -> bool:
 
 def test_no_jax_or_reference_in_sys_modules():
     """Import the port, run one CPU forward and one CPU serve tick, capture
-    the CUDA program of the smoke loss and diagnose it in a fresh
-    interpreter, and look at what got imported."""
+    the CUDA program of the smoke loss and diagnose it, and take one train
+    step from the port's data pipeline, in a fresh interpreter, and look at
+    what got imported."""
     code = """
 import sys, torch
 from repro_torch.configs import get_config, smoke_config
@@ -74,6 +75,15 @@ module = capture(lambda p, b: loss_fn(p, cfg, b, chunk=32), params, batch,
 assert module.kernel_calls["flash_attention"] == cfg.n_layers
 an = analyze_module(module, "nvidia_h100_sxm")
 assert an.estimated_step_seconds > 0 and an.chains
+from repro_torch.data import (DataPipeline, SyntheticConfig,
+                              SyntheticTokenDataset)
+from repro_torch.runtime import TrainOptions, init_train_state, make_train_step
+state = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+pipe = DataPipeline(SyntheticTokenDataset(SyntheticConfig(cfg.vocab_size, 32)),
+                    2, device="cpu")
+state, metrics = make_train_step(cfg, options=TrainOptions(chunk=32))(
+    state, pipe.device_batch(0))
+assert int(state["step"]) == 1 and metrics["loss"].isfinite()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
@@ -118,6 +128,14 @@ def test_entry_points_default_to_the_card():
         init_decode_state(cfg, 1, 8)
     with pytest.raises((RuntimeError, AssertionError)):
         init_params(cfg)
+    from repro_torch.data import (DataPipeline, SyntheticConfig,
+                                  SyntheticTokenDataset)
+    from repro_torch.runtime import init_train_state
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_train_state(cfg)
+    pipe = DataPipeline(SyntheticTokenDataset(SyntheticConfig(256, 8)), 2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pipe.device_batch(0)
 
 
 @pytest.fixture
