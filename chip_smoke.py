@@ -79,7 +79,17 @@ error:
      it (bf16 printed, not gated), every leaf given a gradient; then
      TRAIN_STEPS steps, each launching K1 48 and K2 97 times, the loss,
      grad norm and lr_scale of each, a held batch's loss falling, ms a
-     step, tokens/s, peak memory and one profiled step.
+     step, tokens/s, peak memory and one profiled step;
+ 16. the train driver, `repro_torch.launch.train.main`, at phase 15's
+     sizes: 4 steps twice without a checkpoint (the first also with
+     `--analyze`: the whole step captured on the card and diagnosed on
+     `nvidia_h100_sxm`), 2 steps saved through the async checkpoint
+     manager, then `--restore` on to step 4; the resumed losses held to
+     the uninterrupted run's within RESTORE_FACTOR times the two
+     uninterrupted runs' spread, with a restore that drops `opt/mu` and
+     one that leaves `step` at 0 outside; K1 and K2 launched as in phase
+     15 every step; the checkpoint's bytes, save and restore seconds and
+     disk, in a directory under the output's that it removes.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -92,9 +102,11 @@ import argparse
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from dataclasses import replace
@@ -1521,7 +1533,7 @@ STEP_KINDS = (("K1", ("flash_attention",)), ("K2", ("rmsnorm",)),
 def detached_kernel_call(torch):
     """A known fault for phase 15's gate: K1 called as before the autograd
     route, its output a fresh tensor with no `grad_fn`."""
-    def call(kernel, *args, plain=None, plain_fn=None, **kwargs):
+    def call(kernel, *args, plain_fn, **kwargs):
         with torch.no_grad():
             return kernel(*args, **kwargs)
     return call
@@ -1774,6 +1786,253 @@ def run_train(torch, ops, cfg, flags, loss_fn, init_params,
     return result
 
 
+# Phase 16: the train driver (`repro_torch.launch.train.main`, the user's
+# entry point) at full width, the sizes of phase 15.  Run A trains
+# DRIVER_STEPS steps in one go, twice (A1 also `--analyze`); run B trains
+# RESTORE_AT steps and saves; run C restores it and trains on to
+# DRIVER_STEPS.  The gate: C's losses at steps RESTORE_AT.. equal A1's, up
+# to RESTORE_FACTOR times the spread between A1 and A2 at those steps (0
+# where the two uninterrupted runs agree bit for bit).  A step's loss is
+# taken before its update, so the first resumed loss reads only the
+# restored params; the next one reads the optimizer state and the step
+# counter too.  Two known faults, each a restore that returns run C's
+# state with one part lost, must fall outside: `opt/mu` left at the fresh
+# state's zeros, and `step` left at 0 (the schedule restarts).
+DRIVER_STEPS, RESTORE_AT = 4, 2
+RESTORE_FACTOR = LOSS_FACTOR
+# free disk the phase asks for: two full checkpoints (~6.9 GB each at
+# qwen2-0.5b's width: bf16 params, f32 master, mu and nu) and room
+DRIVER_DISK_BYTES = 16 * 2**30
+
+
+def tree_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def run_train_driver(torch, ops, cfg, train, checkpoint, core, work: Path,
+                     phase15_ms: float):
+    """Phase 16 (see DRIVER_STEPS): runs A1, A2, B and C through
+    `train.main`, each run's launches K1 2 x layers and K2 4 x layers + 1 a
+    step; the restore gate and its two faults; the checkpoint's bytes, the
+    seconds of each save (the caller's blocking part, the background write)
+    and of the restore, the disk it took; LEO on A1's captured step.  The
+    seconds are read by the stand-ins this phase puts in the driver's way
+    (a timed `CheckpointManager`, `capture` and `LeoSession`)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    layers = cfg.n_layers
+    one_step = {"flash_attention": 2 * layers,
+                "rmsnorm_pipelined": 4 * layers + 1}
+    free = shutil.disk_usage(work).free
+    print(f"  {free / 2**30:.1f} GiB free under {work}")
+    require(free >= DRIVER_DISK_BYTES, f"phase 16: {free} bytes free under "
+            f"{work}, the phase needs {DRIVER_DISK_BYTES}")
+    ckpt = work / "ckpt"
+    base = ["--arch", ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S)]
+    kept = {}
+    log = {}  # what the stand-ins saw in the current run
+
+    class TimedManager(checkpoint.CheckpointManager):
+        """Run B's manager: times each save and each restore.  A save's
+        background write runs from the caller's return to the worker's
+        rotation of the checkpoints."""
+        def save(self, step, state):
+            self.wait()
+            record = {"step": step, "bytes": sum(
+                torch.as_tensor(x).nbytes for x in tree_leaves(state))}
+            log["saves"].append(record)
+            t0 = time.perf_counter()
+            super().save(step, state)
+            record["returned"] = time.perf_counter()
+            record["blocking_seconds"] = record["returned"] - t0
+
+        def _rotate(self):
+            log["saves"][-1]["written"] = time.perf_counter()
+            super()._rotate()
+
+        def restore_latest(self, like, device=None):
+            t0 = time.perf_counter()
+            out = super().restore_latest(like, device)
+            log["restore_seconds"] = time.perf_counter() - t0
+            return out
+
+    class KeepRestored(TimedManager):
+        """Run C's manager: also keeps a device copy of what it
+        restored."""
+        def restore_latest(self, like, device=None):
+            state, step = super().restore_latest(like, device)
+            kept["state"] = tree_map(torch.clone, state)
+            kept["step"] = step
+            return state, step
+
+    def faulty(kind):
+        class FaultyRestore(checkpoint.CheckpointManager):
+            """A restore that loses one part of run C's state; saves
+            nothing."""
+            def restore_latest(self, like, device=None):
+                state = tree_map(torch.clone, kept["state"])
+                if kind == "drop_mu":
+                    state["opt"]["mu"] = like["opt"]["mu"]
+                else:
+                    state["step"] = like["step"]
+                return state, kept["step"]
+
+            def save(self, step, state):
+                pass
+        return FaultyRestore
+
+    real_capture = core.capture
+
+    def timed_capture(*a, **k):
+        t0 = time.perf_counter()
+        module = real_capture(*a, **k)
+        log["analysis"] = {"capture_seconds": time.perf_counter() - t0,
+                           "instructions": sum(
+                               1 for _ in module.all_instructions()),
+                           "kernel_regions": dict(module.kernel_calls)}
+        return module
+
+    class TimedSession(core.LeoSession):
+        def analyze(self, *a, **k):
+            t0 = time.perf_counter()
+            an = super().analyze(*a, **k)
+            log["analysis"]["analyze_seconds"] = time.perf_counter() - t0
+            return an
+
+    def drive(name, extra, manager=TimedManager):
+        print(f"  run {name}: main({' '.join(base + extra)})")
+        stand_ins = [(train, "CheckpointManager", manager),
+                     (core, "capture", timed_capture),
+                     (core, "LeoSession", TimedSession)]
+        saved = [(m, attr, getattr(m, attr)) for m, attr, _ in stand_ins]
+        log.clear()
+        log.update(saves=[], restore_seconds=None)
+        try:
+            for m, attr, new in stand_ins:
+                setattr(m, attr, new)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train.main(base + extra)
+            torch.cuda.synchronize()
+            res["run_seconds"] = time.perf_counter() - t0
+            res["launches"] = ops.launch_counts()
+            res["flash_attention_bodies"] = dict(
+                ops.flash_attention.body_launches)
+        finally:
+            for m, attr, old in saved:
+                setattr(m, attr, old)
+        for record in log["saves"]:  # main waits for the last write
+            record["write_seconds"] = (record.pop("written") -
+                                       record.pop("returned"))
+        res.update(checkpoints=log["saves"],
+                   restore_seconds=log["restore_seconds"])
+        if "analysis" in log:
+            res["analysis"] = log["analysis"]
+        n = res["steps"]
+        require(all(res["launches"][k] == n * c for k, c in
+                    one_step.items()) and
+                res["flash_attention_bodies"]["tensor_core"] ==
+                n * one_step["flash_attention"],
+                f"phase 16 run {name}: launches {res['launches']}, bodies "
+                f"{res['flash_attention_bodies']} in {n} steps, expected "
+                f"{one_step} a step, all K1 on the tensor-core body")
+        require(all(math.isfinite(h["loss"]) for h in res["history"]),
+                f"phase 16 run {name}: a loss is not finite")
+        res["disk_bytes"] = tree_bytes(work)
+        print(f"    {n} steps in {res['run_seconds']:.3f} s: losses " +
+              ", ".join(f"{h['step']}: {h['loss']!r}" for h in
+                        res["history"]) + f"; {res['disk_bytes']} bytes on "
+              f"disk under the phase's directory")
+        for c in res["checkpoints"]:
+            print(f"    saved step {c['step']}: {c['bytes']} bytes, the "
+                  f"caller blocked {c['blocking_seconds']:.3f} s, written "
+                  f"in {c['write_seconds']:.3f} s")
+        if res["restore_seconds"] is not None:
+            print(f"    restored in {res['restore_seconds']:.3f} s")
+        return res
+
+    steps = str(DRIVER_STEPS)
+    runs = {"A1": drive("A1", ["--steps", steps, "--analyze"]),
+            "A2": drive("A2", ["--steps", steps])}
+    runs["B"] = drive("B", ["--steps", str(RESTORE_AT), "--checkpoint-dir",
+                            str(ckpt)])
+    resume = ["--steps", steps, "--checkpoint-dir", str(ckpt), "--restore"]
+    runs["C"] = drive("C", resume, KeepRestored)
+    faults = {kind: drive(f"fault {kind}", resume, faulty(kind))
+              for kind in ("drop_mu", "step_zero")}
+    kept.clear()
+    peak_disk = max(r["disk_bytes"] for r in runs.values())
+
+    def losses(res):
+        return {h["step"]: h["loss"] for h in res["history"]}
+    a1, a2, c = losses(runs["A1"]), losses(runs["A2"]), losses(runs["C"])
+    resumed = list(range(RESTORE_AT, DRIVER_STEPS))
+    spread = max(abs(a1[i] - a2[i]) for i in resumed)
+    limit = RESTORE_FACTOR * spread
+
+    def gap(res):
+        got = losses(res)
+        return max(abs(got[i] - a1[i]) for i in resumed)
+    gaps = {"C": gap(runs["C"]),
+            **{kind: gap(res) for kind, res in faults.items()}}
+    print(f"  restore gate: losses at steps {resumed}, A1 " +
+          ", ".join(f"{a1[i]!r}" for i in resumed) + "; A2 " +
+          ", ".join(f"{a2[i]!r}" for i in resumed) + "; C " +
+          ", ".join(f"{c[i]!r}" for i in resumed) + f"; spread A1-A2 "
+          f"{spread!r}, limit {RESTORE_FACTOR:g}x = {limit!r}; largest gap "
+          f"from A1: " + ", ".join(f"{k} {v!r}" for k, v in gaps.items()))
+    require(runs["C"]["steps"] == DRIVER_STEPS - RESTORE_AT and
+            sorted(c) == resumed, f"phase 16: run C resumed at "
+            f"{sorted(c)}, expected {resumed}")
+    require(gaps["C"] <= limit, f"phase 16: run C's losses are "
+            f"{gaps['C']} from the uninterrupted run's, beyond {limit}")
+    for kind in faults:
+        require(gaps[kind] > limit, f"phase 16: the restore fault {kind} "
+                f"moves the losses by {gaps[kind]}, within {limit}: the "
+                f"gate cannot see it")
+    saves = runs["B"]["checkpoints"] + runs["C"]["checkpoints"]
+    require([s["step"] for s in saves] == [RESTORE_AT, DRIVER_STEPS],
+            f"phase 16: saves {saves}")
+    require(peak_disk <= 2 * max(s["bytes"] for s in saves) + 2**20,
+            f"phase 16: {peak_disk} bytes on disk at once, more than two "
+            f"checkpoints")
+
+    ms = statistics.median(h["seconds"] for r in (runs["A1"], runs["A2"])
+                           for h in r["history"][1:]) * 1e3
+    an = runs["A1"]["analysis"]
+    leo_ms = runs["A1"]["leo_step_seconds"] * 1e3
+    print(f"  through the driver: {ms:.3f} ms a step (median of steps "
+          f"1-{DRIVER_STEPS - 1} of A1 and A2), "
+          f"{TRAIN_B * TRAIN_S / (ms / 1e3):.1f} tokens/s; phase 15 "
+          f"{phase15_ms:.3f} ms a step, "
+          f"{TRAIN_B * TRAIN_S / (phase15_ms / 1e3):.1f} tokens/s")
+    print(f"  --analyze (A1's step captured on the card): "
+          f"{an['instructions']} instructions, kernel regions "
+          f"{an['kernel_regions']}, captured in {an['capture_seconds']:.3f} "
+          f"s, analysed in {an['analyze_seconds']:.3f} s; LEO's estimate "
+          f"{leo_ms:.3f} ms a step beside {ms:.3f} ms measured "
+          f"({ms / leo_ms:.2f}x)")
+    require(an["kernel_regions"] == one_step, f"phase 16: the captured "
+            f"step has kernel regions {an['kernel_regions']}, expected "
+            f"{one_step}")
+    for res in list(runs.values()) + list(faults.values()):
+        res.pop("analysis", None)
+    return {"steps": DRIVER_STEPS, "restore_at": RESTORE_AT, "runs": runs,
+            "faults": faults,
+            "gate": {"factor": RESTORE_FACTOR, "spread": spread,
+                     "limit": limit, "gaps": gaps},
+            "peak_disk_bytes": peak_disk, "ms_per_step": ms,
+            "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+            "phase15_ms_per_step": phase15_ms, "analysis": an,
+            "leo_ms": leo_ms,
+            # the main-path runs' launches, for the kernels line
+            "launches": {k: sum(runs[r]["launches"][k] for r in runs)
+                         for k in runs["A1"]["launches"]},
+            "flash_attention_bodies": {
+                k: sum(runs[r]["flash_attention_bodies"][k] for r in runs)
+                for k in runs["A1"]["flash_attention_bodies"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -1808,7 +2067,9 @@ def main(argv=None) -> int:
                                     loss_fn)
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
+    import repro_torch.checkpoint as checkpoint
     import repro_torch.data as data
+    import repro_torch.launch.train as train_driver
     import repro_torch.optim as optim
     import repro_torch.runtime as runtime
 
@@ -2044,12 +2305,26 @@ def main(argv=None) -> int:
                         attention_module, runtime, optim, data)
     torch.cuda.empty_cache()
 
+    # phase 16
+    print(f"phase 16: the train driver at full {ARCH} width (B {TRAIN_B} x "
+          f"S {TRAIN_S}, {cfg.dtype}): checkpoint, restore and resume "
+          f"against an uninterrupted run, --analyze")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase16_", dir=out.parent))
+    try:
+        driven = run_train_driver(torch, ops, cfg, train_driver, checkpoint,
+                                  core, work, trained["ms_per_step"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
     main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
     main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
-                 xserve, trained)
+                 xserve, trained, driven)
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -2124,8 +2399,6 @@ def main(argv=None) -> int:
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main "
                 f"path")
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build_s, "rmsnorm_ptxas": rms_ptxas,
@@ -2138,6 +2411,7 @@ def main(argv=None) -> int:
         "ring_wrap": ring, "rmsnorm_baseline": base, "case_study": study,
         "leo_loop": loop, "mlstm_chunkwise": mlstm, "slstm_scan": slstm,
         "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
+        "train_driver": driven,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -12,9 +12,16 @@ H100 backend:
   * `backends.nvidia` registers `nvidia_h100_sxm` beside the six
     backends of the reference.
 
-    from repro_torch.core import analyze_module, capture
+The session and service tiers (`session.py`, `service.py`, `caching.py`,
+and `hlo_parser.py`, which the session parses text with) are verbatim
+copies of the reference's; `LeoSession.analyze` takes a captured `Module`
+as it takes HLO text.  `LeoService`'s `advise=True` and `rewrite=True`
+import the advisor and rewrite packages, which the port does not have yet,
+and raise `ModuleNotFoundError`.
+
+    from repro_torch.core import LeoSession, capture
     module = capture(fn, *example_args, device="cuda")
-    an = analyze_module(module, "nvidia_h100_sxm")
+    an = LeoSession().analyze(module, backend="nvidia_h100_sxm")
 """
 from .analyzer import LeoAnalysis, analyze_module, cross_backend_analyze
 from .backends import (
@@ -25,7 +32,9 @@ from .backends import (
     register_backend,
     resolve_backend,
 )
+from .caching import DiskCache, LRUCache
 from .fusion_model import FUSED_REGION_MARK
+from .hlo_parser import HloParser, parse_hlo
 from .hwmodel import HARDWARE_MODELS, TPU_V4, TPU_V5E, TPU_V5P, HardwareModel
 from .isa import (
     Computation,
@@ -39,16 +48,21 @@ from .isa import (
     SyncKind,
 )
 from .ptx_frontend import from_ptx, ptx_entries
-from .report import diagnostic_context, recommendations
+from .report import Diagnosis, diagnostic_context, recommendations
 from .roofline import RooflineReport, compute_roofline
+from .service import AnalyzeRequest, DiagnoseOptions, LeoService
+from .session import LeoSession, SessionStats
 from .torch_frontend import capture
 
 __all__ = [
-    "Backend", "Computation", "EdgeKind", "FUSED_REGION_MARK",
-    "HARDWARE_MODELS", "HardwareModel", "Instruction", "LeoAnalysis",
-    "Module", "OpClass", "REGISTRY", "RooflineReport", "ShapeInfo",
+    "AnalyzeRequest", "Backend", "Computation", "DiagnoseOptions",
+    "Diagnosis", "DiskCache", "EdgeKind", "FUSED_REGION_MARK",
+    "HARDWARE_MODELS", "HardwareModel", "HloParser", "Instruction",
+    "LRUCache", "LeoAnalysis", "LeoService", "LeoSession", "Module",
+    "OpClass", "REGISTRY", "RooflineReport", "SessionStats", "ShapeInfo",
     "StallClass", "SyncInfo", "SyncKind", "TPU_V4", "TPU_V5E", "TPU_V5P",
     "analyze_module", "capture", "compute_roofline", "cross_backend_analyze",
     "diagnostic_context", "from_ptx", "get_backend", "list_backends",
-    "ptx_entries", "recommendations", "register_backend", "resolve_backend",
+    "parse_hlo", "ptx_entries", "recommendations", "register_backend",
+    "resolve_backend",
 ]

@@ -331,37 +331,29 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
 _ACTIVE: Optional[_Recorder] = None  # the recorder of the running capture
 
 
-def kernel_call(kernel: Callable, *args,
-                plain: Optional[Callable[[], Any]] = None,
-                plain_fn: Optional[Callable[..., Any]] = None,
+def kernel_call(kernel: Callable, *args, plain_fn: Callable[..., Any],
                 **kwargs) -> Any:
     """`kernel(*args, **kwargs)`: the models call each hand kernel's wrapper
-    through here, with the kernel's plain version in one of two forms:
-    `plain_fn`, a function of the kernel's positional tensors (what the
-    models pass), or `plain`, a function of no argument that closes over
-    them.  Give one of the two.
+    through here, with `plain_fn`, the kernel's plain version as a function
+    of the kernel's positional tensors.
 
-    * Under `capture` nothing launches: `kernel.check(*args, **kwargs)`
-      raises what the wrapper would raise, then the plain version runs and
-      its ops are recorded as one fused region of the kernel.
+    * Under `capture` nothing launches: `kernel.check(*args, **kwargs)`,
+      with grad mode off as the autograd route calls the wrapper, raises
+      what the wrapper would raise, then `plain_fn(*args)` runs and its
+      ops (and, in a captured backward, its gradient's) are recorded as
+      one fused region of the kernel.
     * When grad mode is on and an argument requires grad, the kernel runs
       through `kernels.autograd.KernelFunction`: forward the kernel, backward
       the gradient of `plain_fn` recomputed on the saved inputs (the
-      gradient the reference takes).  That needs the tensor form.
+      gradient the reference takes).
     * Otherwise (serving, prefill) the wrapper is called as it is."""
-    if (plain is None) == (plain_fn is None):
-        raise TypeError(f"kernel_call({kernel.__name__}): give the plain "
-                        f"version as exactly one of plain and plain_fn")
     if _ACTIVE is not None:
-        kernel.check(*args, **kwargs)
-        return _ACTIVE.region(kernel.__name__, plain or functools.partial(
-            plain_fn, *args))
+        with torch.no_grad():
+            kernel.check(*args, **kwargs)
+        return _ACTIVE.region(kernel.__name__,
+                              functools.partial(plain_fn, *args))
     if torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        if plain_fn is None:
-            raise ValueError(f"{kernel.__name__}: a gradient through the "
-                             f"kernel needs its plain version as a function "
-                             f"of its tensors (plain_fn)")
         return kernel_apply(kernel, plain_fn, *args, **kwargs)
     return kernel(*args, **kwargs)
 

@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import capture
 from repro_torch.core.torch_frontend import kernel_call
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.autograd import KernelFunction
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models import xlstm as xlstm_mod
@@ -113,6 +113,35 @@ def test_the_route_differentiates_only_the_inputs_that_need_it():
     torch.testing.assert_close(gx, want, rtol=0, atol=0)
 
 
+def test_a_captured_backward_checks_the_kernel_as_the_route_launches_it():
+    """A captured train step reaches each kernel with inputs that autograd
+    tracks.  The capture checks them as the autograd route launches the
+    wrapper, with grad mode off, so a check that refuses grad-requiring
+    inputs (every `check_*`) passes; the region records the plain version,
+    and the captured backward its gradient.  On fake CPU tensors: the same
+    capture on fake CUDA tensors needs a torch built with CUDA."""
+    kernel = _stand_in(_norm64, "rmsnorm_pipelined")
+    kernel.check = lambda *a, **k: _build.check_no_grad(kernel.__name__, *a)
+
+    def step(x, scale):
+        x = x.detach().requires_grad_()
+        out = kernel_call(kernel, x, scale, plain_fn=_norm64)
+        (g,) = torch.autograd.grad(out.sum(), x)
+        return g
+    x, scale = torch.rand((6, 16), dtype=torch.float64), \
+        torch.rand(16, dtype=torch.float64)
+    with pytest.raises(ValueError, match="requires grad"):
+        kernel.check(x.requires_grad_(), scale)
+    module = capture(step, x.detach(), scale, device="cpu")
+    assert module.kernel_calls == {"rmsnorm_pipelined": 1}
+    assert kernel.launches == 0
+    forward = sum(1 for i in module.all_instructions()
+                  if i.opcode not in ("parameter", "constant"))
+    plain = capture(_norm64, x.detach(), scale, device="cpu")
+    assert forward > sum(1 for i in plain.all_instructions()
+                         if i.opcode not in ("parameter", "constant"))
+
+
 # -- each wrapper's route, on CPU tensors -------------------------------------
 
 def _mlstm_plain(q, k, v, log_i, log_f):
@@ -181,16 +210,16 @@ def test_each_check_refuses_an_input_that_requires_grad(name):
 
 
 def test_kernel_call_needs_one_form_of_the_plain_version():
+    """`plain_fn`, the plain version as a function of the kernel's tensors,
+    is required: a capture records it and a gradient differentiates it."""
     x, scale = torch.rand((8, 64)), torch.rand(64)
-    with pytest.raises(TypeError, match="exactly one"):
+    with pytest.raises(TypeError, match="plain_fn"):
         kernel_call(ops.rmsnorm_pipelined, x, scale)
-    with pytest.raises(TypeError, match="exactly one"):
-        kernel_call(ops.rmsnorm_pipelined, x, scale, plain=lambda: x,
-                    plain_fn=ops.rmsnorm_plain)
-    # a gradient needs the tensor form
-    with pytest.raises(ValueError, match="plain_fn"):
-        kernel_call(ops.rmsnorm_pipelined, x.requires_grad_(), scale,
+    with pytest.raises(TypeError, match="plain"):
+        kernel_call(ops.rmsnorm_pipelined, x, scale,
                     plain=functools.partial(ops.rmsnorm_plain, x, scale))
+    with pytest.raises(TypeError, match="plain_fn"):
+        kernel_call(ops.rmsnorm_pipelined, x.requires_grad_(), scale)
 
 
 def test_no_autograd_route_without_grad(monkeypatch):

@@ -19,7 +19,6 @@ needed) and diagnosed by the port's analyzer.
   wrapper's checks and records the plain version as the kernel's region.
 """
 import dataclasses
-import functools
 import warnings
 
 import jax
@@ -210,7 +209,7 @@ KERNEL_CASES = {
 
 def _call_kernel(kernel):
     fn, plain = KERNEL_CASES[kernel][:2]
-    return lambda *a: kernel_call(fn, *a, plain=functools.partial(plain, *a))
+    return lambda *a: kernel_call(fn, *a, plain_fn=plain)
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNEL_CASES))
@@ -237,9 +236,9 @@ def test_kernel_call_in_a_capture_refuses_what_the_kernel_refuses(kernel):
 def test_kernel_call_outside_a_capture_calls_the_wrapper():
     x, scale = torch.rand((8, 64)), torch.rand(64)
 
-    def never():
+    def never(*args):
         raise AssertionError("the plain version runs only in a capture")
-    out = kernel_call(ops.rmsnorm_pipelined, x, scale, plain=never)
+    out = kernel_call(ops.rmsnorm_pipelined, x, scale, plain_fn=never)
     assert torch.equal(out, ops.rmsnorm_plain(x, scale))
 
 

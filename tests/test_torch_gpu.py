@@ -683,3 +683,49 @@ def test_train_step_kernel_path_matches_plain_path():
     for a, b in zip(torch.utils._pytree.tree_leaves(kernel[0]["params"]),
                     torch.utils._pytree.tree_leaves(plain[0]["params"])):
         _close(a, b, (1e-4, 0.0))
+
+
+def test_async_checkpoint_of_a_card_state(tmp_path):
+    """The checkpoint manager's snapshot of a state on the card is a host
+    copy taken before `save` returns: an in-place update right after it
+    does not reach the file, and the restore lands on the card, bit for
+    bit (bf16 included)."""
+    from repro_torch.checkpoint import CheckpointManager
+    dev = _cuda()
+    state = {"params": {"w": torch.randn((64, 32), device=dev,
+                                         dtype=torch.bfloat16)},
+             "opt": {"mu": torch.randn((64, 32), device=dev)},
+             "step": torch.tensor(5, dtype=torch.int32, device=dev)}
+    before = {"w": state["params"]["w"].clone(),
+              "mu": state["opt"]["mu"].clone()}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(5, state)
+    state["opt"]["mu"].add_(1.0)
+    state["params"]["w"].mul_(2.0)
+    mgr.wait()
+    like = {"params": {"w": torch.zeros_like(state["params"]["w"])},
+            "opt": {"mu": torch.zeros_like(state["opt"]["mu"])},
+            "step": torch.zeros_like(state["step"])}
+    restored, step = mgr.restore_latest(like)
+    assert step == 5 and int(restored["step"]) == 5
+    assert restored["params"]["w"].device.type == "cuda"
+    assert torch.equal(restored["params"]["w"], before["w"])
+    assert torch.equal(restored["opt"]["mu"], before["mu"])
+
+
+def test_train_driver_launches_the_kernels_every_step(tmp_path):
+    """The driver at smoke width on the card: every step runs K1 and K2
+    (remat "group": the forward twice), and a resumed run takes over where
+    the saved one stopped."""
+    from repro_torch.launch.train import main
+    _cuda()
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    args = ["--smoke", "--batch", "2", "--seq", "64", "--checkpoint-dir",
+            str(tmp_path)]
+    ops.reset_launch_counts()
+    main(args + ["--steps", "2"])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * 2 * cfg.n_layers
+    assert counts["rmsnorm_pipelined"] == 2 * (4 * cfg.n_layers + 1)
+    res = main(args + ["--steps", "3", "--restore"])
+    assert res["steps"] == 1 and res["history"][0]["step"] == 2

@@ -95,9 +95,53 @@ print("BAD", bad)
     assert "BAD []" in res.stdout, res.stdout
 
 
+# the driver's tiers: the checkpoints, fault handling, the train driver,
+# the session and service copies, and the examples
+DRIVER_MODULES = ["checkpoint/__init__.py", "checkpoint/checkpointer.py",
+                  "checkpoint/manager.py", "runtime/fault.py",
+                  "launch/train.py", "core/caching.py", "core/hlo_parser.py",
+                  "core/session.py", "core/service.py",
+                  "examples/__init__.py", "examples/quickstart.py",
+                  "examples/serve_demo.py"]
+
+
+def test_no_jax_or_reference_in_the_driver_tiers(tmp_path):
+    """Train two smoke steps through the driver with a checkpoint, resume
+    one more with `--restore` and `--analyze`, diagnose through
+    `LeoService`, and run the serve demo, in a fresh interpreter, and look
+    at what got imported."""
+    code = f"""
+import sys
+from repro_torch.launch.train import main
+main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
+      "--seq", "16", "--checkpoint-dir", {str(tmp_path)!r}])
+res = main(["--smoke", "--device", "cpu", "--steps", "3", "--batch", "2",
+            "--seq", "16", "--checkpoint-dir", {str(tmp_path)!r},
+            "--restore", "--analyze"])
+assert res["steps"] == 1 and res["leo_step_seconds"] > 0
+from repro_torch.core import LeoService, capture
+from repro_torch.launch.train import build
+_, state, pipe, step = build("qwen2-0.5b", True, 2, 16, "cpu")
+module = capture(step, state, pipe.device_batch(0), device="cpu")
+assert LeoService().diagnose(module, backend="nvidia_h100_sxm").to_json()
+import repro_torch.runtime.fault, repro_torch.core.hlo_parser
+from repro_torch.examples import serve_demo
+serve_demo.main(["--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
 def test_no_forbidden_import_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PORT / m for m in DRIVER_MODULES} <= set(files)
     for path in files:
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, (path, bad)

@@ -19,7 +19,6 @@ reference's decode, never against prefill.  The CUDA kernels themselves are
 held against these plain versions on the card by `tests/test_torch_gpu.py`.
 """
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -135,8 +134,7 @@ def test_slstm_check_spreads_d_over_the_devices_sms(monkeypatch, sms, d,
 
     def scan(a, b):
         return kernel_call(tops.slstm_scan, a, b,
-                           plain=functools.partial(tops.slstm_scan_plain,
-                                                   a, b))
+                           plain_fn=tops.slstm_scan_plain)
     if takes:
         module = capture(scan, xg, r, device="cuda")
         assert module.kernel_calls == {"slstm_scan": 1}

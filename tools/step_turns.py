@@ -4,6 +4,7 @@ that two checkouts can be run in turns on one card.
 
   python3 tools/step_turns.py prefill [--root DIR] [--samples N] [--out F]
   python3 tools/step_turns.py train [--root DIR] [--out F]
+  python3 tools/step_turns.py driver [--root DIR] [--samples N] [--out F]
 
 `--root` is the checkout whose `src/` and `chip_smoke.py` run (default:
 this one).  To compare a commit with this tree, unpack it with `git
@@ -18,6 +19,13 @@ prefill: hymba-1.5b's bf16 prefill as `chip_smoke.py` phase 6 runs it (B 2
   wall time of one call and a CUDA synchronize.  Then three calls under
   `torch.profiler`, each with its device busy time.
 train: phase 15, through the checkout's `chip_smoke.run_train`.
+driver: phase 15's timed loop and phase 16's driver, in turns in one
+  process (`--samples` turns of each, the loop first), at qwen2-0.5b's
+  full width, B 4 x S 1024, DRIVER_STEPS steps a turn.  The loop takes
+  its state, pipeline and step from `launch/train.py::build` and times
+  each step between two CUDA synchronizes, as phase 15 does; the driver
+  is `launch/train.py::main`, each step timed by its `history`.  A turn's
+  first step is left out of its samples.
 
 The card's name and power limit are printed first, the result as one JSON
 line last, and the result is written to `--out` when given.
@@ -101,9 +109,59 @@ def train_turn(torch, cs) -> dict:
             "kernel_gap": r["grad_gate"]["f32"]["kernel"]["max_gap"]}
 
 
+DRIVER_STEPS = 6
+
+
+def driver_turns(torch, cs, turns: int) -> dict:
+    import repro_torch.launch.train as train
+    args = ["--arch", cs.ARCH, "--batch", str(cs.TRAIN_B), "--seq",
+            str(cs.TRAIN_S), "--steps", str(DRIVER_STEPS)]
+    ms = {"loop": [], "driver": []}
+    for turn in range(turns):
+        _, state, pipeline, step = train.build(
+            cs.ARCH, False, cs.TRAIN_B, cs.TRAIN_S, "cuda",
+            steps=DRIVER_STEPS)
+        batches = pipeline(0)
+        loop = []
+        try:
+            for _ in range(DRIVER_STEPS):
+                b = next(batches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                torch.cuda.synchronize()
+                loop.append((time.perf_counter() - t0) * 1e3)
+                for v in metrics.values():  # as phase 15, after the timing
+                    v.item()
+        finally:
+            batches.close()
+        del state, step, pipeline, metrics
+        torch.cuda.empty_cache()
+        res = train.main(args)
+        torch.cuda.empty_cache()
+        driven = [h["seconds"] * 1e3 for h in res["history"]]
+        ms["loop"].append(loop[1:])
+        ms["driver"].append(driven[1:])
+        print(f"turn {turn}: loop " + ", ".join(f"{t:.3f}" for t in loop) +
+              " ms; driver " + ", ".join(f"{t:.3f}" for t in driven) +
+              " ms", flush=True)
+    summary = {}
+    for way, per_turn in ms.items():
+        every = [t for turn in per_turn for t in turn]
+        summary[way] = {"median_ms": statistics.median(every),
+                        "min_ms": min(every), "max_ms": max(every),
+                        "turn_medians_ms": [statistics.median(t)
+                                            for t in per_turn]}
+    return {"arch": cs.ARCH, "B": cs.TRAIN_B, "S": cs.TRAIN_S,
+            "steps_a_turn": DRIVER_STEPS, "turns": turns, "step_ms": ms,
+            "summary": summary,
+            "driver_over_loop": (summary["driver"]["median_ms"] /
+                                 summary["loop"]["median_ms"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("phase", choices=("prefill", "train"))
+    ap.add_argument("phase", choices=("prefill", "train", "driver"))
     ap.add_argument("--root", default=str(HERE),
                     help="the checkout whose src/ and chip_smoke.py run")
     ap.add_argument("--samples", type=int, default=20)
@@ -128,8 +186,10 @@ def main(argv=None) -> int:
     _build.library()
     if args.phase == "prefill":
         result = prefill_turn(torch, cs, args.samples)
-    else:
+    elif args.phase == "train":
         result = train_turn(torch, cs)
+    else:
+        result = driver_turns(torch, cs, args.samples)
     result = {"phase": args.phase, "root": str(root), "gpu": smi, **result}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
