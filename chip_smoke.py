@@ -89,7 +89,18 @@ error:
      uninterrupted runs' spread, with a restore that drops `opt/mu` and
      one that leaves `step` at 0 outside; K1 and K2 launched as in phase
      15 every step; the checkpoint's bytes, save and restore seconds and
-     disk, in a directory under the output's that it removes.
+     disk, in a directory under the output's that it removes;
+ 17. LEO's upper tiers on the card's programs: phase 11's captured
+     `loss_plain` and `loss_kernel` and phase 10's PTX of K2 and K3, each
+     through the advisor and the rewrite loop on `nvidia_h100_sxm` (the
+     identity replay equal to the baseline, every rewrite a typed skip or
+     the printer's refusal of a Module it cannot emit) and through
+     `LeoService.diagnose` with advise (the advice recorded, the Diagnosis
+     unchanged by a JSON round trip), the top advice printed beside the
+     card's measured times; then
+     `python -m repro_torch.launch.analysis_server --smoke` in a fresh
+     process (exit 0) and `LeoHttpd` with `LeoClient` over the three demo
+     traces, the wire's Diagnosis equal to the in-process one.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -101,6 +112,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -903,7 +915,7 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
     text = ptx_path.read_text()
     ptx_s = time.perf_counter() - t0
     source_lines = (csrc / "rmsnorm.cu").read_text().splitlines()
-    rows = {}
+    rows, modules = {}, {}
     for name, kernel, extra in (
             ("rmsnorm_pipelined", "rmsnorm_pipelined_kernel",
              (f"Li{chunks}E",)),
@@ -911,7 +923,7 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
              (f"Li{chunks}ELb1E",))):
         entry = find_entry(text, kernel, "bfloat16", *extra)
         t0 = time.perf_counter()
-        module = core.from_ptx(text, entry, name=kernel)
+        module = modules[name] = core.from_ptx(text, entry, name=kernel)
         an = core.analyze_module(module, "nvidia_h100_sxm")
         seconds = time.perf_counter() - t0
         waits = [e for e in an.graph.edges
@@ -981,7 +993,8 @@ def run_case_study(torch, ops, core, build, csrc: Path, measured):
               f"cycles by class: "
               + ", ".join(f"{k} {v:.0f}" for k, v in
                           row["stall_cycles"].items()))
-    return {"kernels": rows, "launches": counts, "ptx_seconds": ptx_s}
+    return {"kernels": rows, "launches": counts, "ptx_seconds": ptx_s,
+            "modules": modules}
 
 
 def shifted_keys_attention(flash_attention):
@@ -1155,12 +1168,13 @@ def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
           f"not gated: no limit separates there) on seeds {faults_inside}")
 
     backend = core.get_backend("nvidia_h100_sxm")
-    diag = {}
+    diag, modules = {}, {}
     for impl in ("plain", "kernel"):
         t0 = time.perf_counter()
         with flags(attention_impl=impl):
-            module = core.capture(lambda p, bt: loss_fn(p, cfg, bt), params,
-                                  batch, name=f"loss_{impl}")
+            module = modules[f"loss_{impl}"] = core.capture(
+                lambda p, bt: loss_fn(p, cfg, bt), params, batch,
+                name=f"loss_{impl}")
         capture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         an = core.analyze_module(module, backend)
@@ -1222,7 +1236,7 @@ def run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
     return {"B": b, "S": s, "factor": LOSS_FACTOR, "spread": spread,
             "limits": limits, "gaps": gaps, "seeds": seeds,
             "fault_inside_bf16_limit": faults_inside,
-            "diagnosis": diag, "rates": rates,
+            "diagnosis": diag, "rates": rates, "modules": modules,
             "launches": {k: sum(r["launches"][k] for one in seeds.values()
                                 for r in one["runs"].values())
                          for k in runs["plain"]["launches"]},
@@ -2033,6 +2047,162 @@ def run_train_driver(torch, ops, cfg, train, checkpoint, core, work: Path,
                 for k in runs["A1"]["flash_attention_bodies"]}}
 
 
+# Phase 17: LEO's upper tiers (the advisor, the rewrite loop, the analysis
+# server) on the card's own programs.  Every number it prints is a host time
+# or a model's estimate beside what the card measured in phases 10 and 11.
+SERVER_TIMEOUT_S = 300
+UPPER_BACKEND = "nvidia_h100_sxm"
+
+
+def advise_on(core, advisor, rewrite, name, module, measured_ms):
+    """The advisor and the rewrite loop on one captured Module, each tier
+    gated on its own.  Gates: the identity replay has the baseline's
+    fingerprint; the advice is recorded; every rewrite item is a typed
+    skip, or the loop raised the printer's refusal of a non-HLO Module,
+    as the reference does; `LeoService.diagnose`'s Diagnosis with the
+    advice survives a JSON round trip."""
+    backend = core.get_backend(UPPER_BACKEND)
+    engine = advisor.WhatIfEngine(module, backend)
+    base = advisor.profile_fingerprint(engine.baseline())
+    require(advisor.profile_fingerprint(
+        engine.replay(advisor.Identity()).profile) == base,
+        f"phase 17 {name}: the identity replay is not the baseline")
+    t0 = time.perf_counter()
+    report = advisor.Advisor().report(module, backend)
+    advise_s = time.perf_counter() - t0
+    refused = None
+    skipped = []
+    t0 = time.perf_counter()
+    try:
+        rw = rewrite.rewrites_section(
+            rewrite.RewriteLoop().run(module, backend,
+                                      advisor_report=report))
+    except rewrite.PrinterError as exc:
+        require(module.source != "hlo", f"phase 17 {name}: the printer "
+                f"refused an HLO module: {exc}")
+        refused = str(exc)
+    else:
+        require(rw["count"] == 0, f"phase 17 {name}: {rw['count']} "
+                f"rewrites of a {module.source} module")
+        for s in rw["skipped"]:
+            require(s["refusal"]["code"] in ("hardware_mutation",
+                                             "unsupported", "noop"),
+                    f"phase 17 {name}: untyped skip {s}")
+        skipped = [(s["rule"], s["refusal"]["code"]) for s in rw["skipped"]]
+    rewrite_s = time.perf_counter() - t0
+    diag = core.LeoService().diagnose(
+        module, backend=UPPER_BACKEND,
+        options=core.DiagnoseOptions(advise=True))
+    require(diag.advice.get("recorded") is True,
+            f"phase 17 {name}: no advice section recorded")
+    text = diag.to_json()
+    require(core.Diagnosis.from_json(text).to_json() == text,
+            f"phase 17 {name}: the Diagnosis changed in a JSON round trip")
+    items = [a.to_dict() for a in report.advice]
+    top = items[0] if items else None
+    row = {"source": module.source,
+           "instructions": sum(1 for _ in module.all_instructions()),
+           "advise_s": advise_s, "rewrite_s": rewrite_s,
+           "replays": report.candidates_replayed,
+           "rules_matched": report.rules_matched,
+           "advice": [(a["rule"], a["mutation"], a["modeled_speedup"])
+                      for a in items],
+           "skipped": skipped, "printer_refusal": refused,
+           "measured_ms": measured_ms}
+    print(f"  {name} ({module.source}, {row['instructions']} instructions, "
+          f"measured {measured_ms:.4f} ms on the card): top advice "
+          + (f"{top['rule']} {top['mutation']} modeled "
+             f"{top['modeled_speedup']:.4f}x" if top else "none")
+          + f"; {row['replays']} replays, {len(items)} items; rewrites "
+          + (f"refused by the printer ({refused})" if refused else
+             f"skipped {skipped}")
+          + f"; advisor {advise_s:.2f} s, rewrite loop {rewrite_s:.2f} s "
+          f"on the host")
+    return row
+
+
+def run_analysis_server(core, serve, server_module):
+    """The analysis server's entry point in a fresh process (it must exit
+    0), then `LeoHttpd` on an ephemeral port with `LeoClient` in this
+    one: each demo trace with advise and rewrite, on one backend and fanned
+    out, the wire's Diagnosis JSON equal to the in-process one."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.analysis_server",
+         "--smoke"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=SERVER_TIMEOUT_S)
+    smoke_s = time.perf_counter() - t0
+    require(res.returncode == 0, f"phase 17: analysis_server --smoke "
+            f"exited {res.returncode}: {res.stderr[-2000:]}")
+    print(f"  analysis_server --smoke: exit 0 in {smoke_s:.2f} s; "
+          + res.stdout.strip().splitlines()[-1])
+    traces = {"demo": server_module.demo_hlo(0),
+              "copy_storm": server_module.copy_storm_hlo(),
+              "wide_ops": server_module.wide_ops_hlo()}
+    options = core.DiagnoseOptions(advise=True, rewrite=True)
+    svc = core.LeoService()
+    served = 0
+    t0 = time.perf_counter()
+    with serve.LeoHttpd(service=svc, port=0, slots=2) as app:
+        with serve.LeoClient(port=app.port, timeout=60.0,
+                             max_retries=2) as client:
+            for name, text in traces.items():
+                for kw in ({"backend": UPPER_BACKEND},
+                           {"backends": [UPPER_BACKEND, "tpu_v5e"]}):
+                    req = core.AnalyzeRequest(hlo_text=text, options=options,
+                                              **kw)
+                    wire = client.submit(req)
+                    local = svc.submit(core.AnalyzeRequest(
+                        hlo_text=text, options=options, **kw))
+                    served += 1
+                    if isinstance(local, dict):
+                        require(sorted(wire) == sorted(local),
+                                f"phase 17 {name}: fan-out {sorted(wire)}")
+                        pairs = [(wire[b], local[b]) for b in local]
+                    else:
+                        pairs = [(wire, local)]
+                    for w, l in pairs:
+                        require(w.to_json() == l.to_json(),
+                                f"phase 17 {name}: the wire's Diagnosis on "
+                                f"{l.backend} is not the in-process one")
+                        require(w.advice["recorded"] and
+                                w.rewrites["recorded"],
+                                f"phase 17 {name}: advice or rewrites not "
+                                f"recorded on {l.backend}")
+    wire_s = time.perf_counter() - t0
+    print(f"  LeoHttpd + LeoClient: {served} requests served, wire equal to "
+          f"in-process on {', '.join(traces)} ({UPPER_BACKEND}, and fanned "
+          f"out to tpu_v5e), {wire_s:.2f} s on the host")
+    return {"smoke_s": smoke_s, "requests_served": served,
+            "wire_s": wire_s}
+
+
+def run_upper_tiers(core, loss_modules, loss_ms, ptx_modules, ptx_ms):
+    """Phase 17: (a) phase 11's captured losses, (b) phase 10's PTX of K2
+    and K3, each advised and rewritten on `nvidia_h100_sxm`; (c) the
+    analysis server."""
+    import repro_torch.advisor as advisor
+    import repro_torch.launch.analysis_server as server_module
+    import repro_torch.rewrite as rewrite
+    import repro_torch.serve as serve
+
+    rows = {}
+    for name, module in list(loss_modules.items()) + \
+            list(ptx_modules.items()):
+        measured = loss_ms[name] if name in loss_ms else ptx_ms[name]
+        rows[name] = advise_on(core, advisor, rewrite, name, module,
+                               measured)
+    ratio = loss_ms["loss_plain"] / loss_ms["loss_kernel"]
+    tops = {n: r["advice"][0][2] if r["advice"] else 1.0
+            for n, r in rows.items()}
+    print(f"  phase 11 measured loss_plain / loss_kernel = {ratio:.3f}x "
+          f"(the attention switch to K1); the advisor's top modeled "
+          f"speedups: " + ", ".join(f"{n} {v:.4f}x" for n, v in tops.items()))
+    return {"programs": rows, "measured_kernel_speedup": ratio,
+            "server": run_analysis_server(core, serve, server_module)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -2250,14 +2420,18 @@ def main(argv=None) -> int:
     main_base = base[2]  # bf16, R 4096, D 896
     print("phase 10: baseline vs pipelined RMSNorm, LEO on the card's own "
           "PTX (nvidia_h100_sxm)")
+    ptx_ms = {"rmsnorm_baseline": main_base["ms"],
+              "rmsnorm_pipelined": main_base["pipelined_ms"]}
     study = run_case_study(
-        torch, ops, core, _build, SRC / "repro_torch" / "csrc",
-        {"rmsnorm_baseline": main_base["ms"],
-         "rmsnorm_pipelined": main_base["pipelined_ms"]})
+        torch, ops, core, _build, SRC / "repro_torch" / "csrc", ptx_ms)
+    ptx_modules = study.pop("modules")
     print(f"phase 11: the LEO loop at full {ARCH} width (loss B 4 x S 1024, "
           f"{cfg.dtype}): plain vs kernel attention, captured and diagnosed")
     loop = run_leo_loop(torch, ops, cfg, flags, loss_fn, init_params, core,
                         attention_module)
+    loss_modules = loop.pop("modules")
+    loss_ms = {f"loss_{impl}": d["measured_s"] * 1e3
+               for impl, d in loop["diagnosis"].items()}
     torch.cuda.empty_cache()
 
     # phases 12, 13 and 14
@@ -2318,6 +2492,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # phase 17
+    print(f"phase 17: LEO's advisor, rewrite loop and analysis server on "
+          f"the card's programs ({smi}): phase 11's losses and phase 10's "
+          f"PTX of K2 and K3 on {UPPER_BACKEND}")
+    upper = run_upper_tiers(core, loss_modules, loss_ms, ptx_modules, ptx_ms)
 
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
@@ -2411,7 +2591,7 @@ def main(argv=None) -> int:
         "ring_wrap": ring, "rmsnorm_baseline": base, "case_study": study,
         "leo_loop": loop, "mlstm_chunkwise": mlstm, "slstm_scan": slstm,
         "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
-        "train_driver": driven,
+        "train_driver": driven, "upper_tiers": upper,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

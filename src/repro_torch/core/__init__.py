@@ -16,8 +16,9 @@ The session and service tiers (`session.py`, `service.py`, `caching.py`,
 and `hlo_parser.py`, which the session parses text with) are verbatim
 copies of the reference's; `LeoSession.analyze` takes a captured `Module`
 as it takes HLO text.  `LeoService`'s `advise=True` and `rewrite=True`
-import the advisor and rewrite packages, which the port does not have yet,
-and raise `ModuleNotFoundError`.
+run the port's copies of the advisor (`repro_torch.advisor`) and the
+rewrite loop (`repro_torch.rewrite`); `repro_torch.serve` and
+`launch/analysis_server.py` serve diagnoses over HTTP.
 
     from repro_torch.core import LeoSession, capture
     module = capture(fn, *example_args, device="cuda")

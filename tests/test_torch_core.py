@@ -31,37 +31,42 @@ BACKENDS = ["amd_mi300a", "intel_pvc", "nvidia_gh200", "tpu_v5e", "tpu_v5p",
             "tpu_v4"]
 
 
-def _shape(s):
-    return port_isa.ShapeInfo(
-        dtype=s.dtype, dims=s.dims,
-        elements=None if s.elements is None else tuple(
-            _shape(e) for e in s.elements))
+def mirror(module, isa):
+    """`module` rebuilt from the classes of `isa` (either package's
+    `core.isa`): every dataclass field copied, every enum mapped by
+    value."""
+    def shape(s):
+        return isa.ShapeInfo(
+            dtype=s.dtype, dims=s.dims,
+            elements=None if s.elements is None else tuple(
+                shape(e) for e in s.elements))
 
-
-def to_port(module):
-    """The reference's Module as the port's: every dataclass field copied,
-    every enum mapped by value."""
-    out = port_isa.Module(name=module.name, entry=module.entry,
-                          source=module.source)
+    out = isa.Module(name=module.name, entry=module.entry,
+                     source=module.source)
     for comp in module.computations.values():
-        pc = port_isa.Computation(name=comp.name, kind=comp.kind,
-                                  parent_op=comp.parent_op)
+        pc = isa.Computation(name=comp.name, kind=comp.kind,
+                             parent_op=comp.parent_op)
         for i in comp.instructions:
             fields = {f.name: getattr(i, f.name)
                       for f in dataclasses.fields(i)}
             fields.update(
-                op_class=port_isa.OpClass(i.op_class.value),
-                shape=_shape(i.shape), attributes=dict(i.attributes),
-                sync=port_isa.SyncInfo(
+                op_class=isa.OpClass(i.op_class.value),
+                shape=shape(i.shape), attributes=dict(i.attributes),
+                sync=isa.SyncInfo(
                     kind=None if i.sync.kind is None else
-                    port_isa.SyncKind(i.sync.kind.value),
+                    isa.SyncKind(i.sync.kind.value),
                     sets=i.sync.sets, waits=i.sync.waits,
                     counter=i.sync.counter))
-            pi = port_isa.Instruction(**fields)
+            pi = isa.Instruction(**fields)
             pc.add(pi)
             pi.index = i.index
         out.add_computation(pc)
     return out
+
+
+def to_port(module):
+    """The reference's Module as the port's."""
+    return mirror(module, port_isa)
 
 
 @pytest.fixture(scope="module")

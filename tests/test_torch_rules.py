@@ -33,9 +33,10 @@ def _forbidden(name: str) -> bool:
 
 def test_no_jax_or_reference_in_sys_modules():
     """Import the port, run one CPU forward and one CPU serve tick, capture
-    the CUDA program of the smoke loss and diagnose it, and take one train
-    step from the port's data pipeline, in a fresh interpreter, and look at
-    what got imported."""
+    the CUDA program of the smoke loss and diagnose it, advise on it and
+    close the rewrite loop, serve one request over HTTP, and take one
+    train step from the port's data pipeline, in a fresh interpreter, and
+    look at what got imported."""
     code = """
 import sys, torch
 from repro_torch.configs import get_config, smoke_config
@@ -75,6 +76,20 @@ module = capture(lambda p, b: loss_fn(p, cfg, b, chunk=32), params, batch,
 assert module.kernel_calls["flash_attention"] == cfg.n_layers
 an = analyze_module(module, "nvidia_h100_sxm")
 assert an.estimated_step_seconds > 0 and an.chains
+from repro_torch.core import AnalyzeRequest, DiagnoseOptions, LeoService
+diag = LeoService().diagnose(
+    module, backend="nvidia_h100_sxm",
+    options=DiagnoseOptions(advise=True, rewrite=True))
+assert diag.advice["recorded"] and diag.rewrites["recorded"]
+from repro_torch.launch.analysis_server import copy_storm_hlo
+from repro_torch.serve import LeoClient, LeoHttpd
+with LeoHttpd(port=0, slots=1) as app:
+    with LeoClient(port=app.port, timeout=30.0, max_retries=1) as client:
+        served = client.submit(AnalyzeRequest(
+            hlo_text=copy_storm_hlo(), backend="nvidia_h100_sxm",
+            options=DiagnoseOptions(advise=True, rewrite=True)))
+assert served.advice["recorded"] and served.rewrites["recorded"]
+assert not torch.cuda.is_initialized()
 from repro_torch.data import (DataPipeline, SyntheticConfig,
                               SyntheticTokenDataset)
 from repro_torch.runtime import TrainOptions, init_train_state, make_train_step
@@ -103,6 +118,16 @@ DRIVER_MODULES = ["checkpoint/__init__.py", "checkpoint/checkpointer.py",
                   "core/session.py", "core/service.py",
                   "examples/__init__.py", "examples/quickstart.py",
                   "examples/serve_demo.py"]
+
+# LEO's upper tiers: the advisor, the rewrite loop, the analysis server
+UPPER_TIERS = ["advisor/whatif.py", "advisor/rules.py", "advisor/advisor.py",
+               "advisor/__init__.py", "rewrite/printer.py",
+               "rewrite/rewriters.py", "rewrite/loop.py",
+               "rewrite/__init__.py", "serve/protocol.py",
+               "serve/metrics.py", "launch/analysis_server.py",
+               "serve/httpd.py", "serve/client.py", "serve/pool.py",
+               "serve/__init__.py", "examples/rewrite_demo.py",
+               "examples/analysis_client_demo.py"]
 
 
 def test_no_jax_or_reference_in_the_driver_tiers(tmp_path):
@@ -141,7 +166,7 @@ print("BAD", bad)
 def test_no_forbidden_import_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {PORT / m for m in DRIVER_MODULES} <= set(files)
+    assert {PORT / m for m in DRIVER_MODULES + UPPER_TIERS} <= set(files)
     for path in files:
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, (path, bad)

@@ -136,13 +136,20 @@ def test_diagnosis_migrates_a_v1_payload(hlo):
 
 
 @pytest.mark.parametrize("option", ["advise", "rewrite"])
-def test_advisor_and_rewrite_are_not_ported_yet(hlo, option):
-    """`advise=True` and `rewrite=True` import the advisor and rewrite
-    packages, which the port does not have yet: they raise."""
-    with pytest.raises(ModuleNotFoundError, match="repro_torch"):
-        port.LeoService().diagnose(
-            hlo, backend="tpu_v5e",
-            options=port.DiagnoseOptions(**{option: True}))
+def test_advise_and_rewrite_equal_reference(hlo, option):
+    """`advise=True` and `rewrite=True` run the port's advisor and rewrite
+    loop: the Diagnosis, its advice and rewrites sections included, is
+    the reference's."""
+    got = port.LeoService().diagnose(
+        hlo, backend="nvidia_gh200",
+        options=port.DiagnoseOptions(**{option: True}))
+    want = ref.LeoService().diagnose(
+        hlo, backend="nvidia_gh200",
+        options=ref.DiagnoseOptions(**{option: True}))
+    assert got.to_json() == want.to_json()
+    section = got.advice if option == "advise" else got.rewrites
+    assert section["recorded"]
+    assert got.to_markdown() == want.to_markdown()
 
 
 def test_caches_equal_reference(tmp_path):
