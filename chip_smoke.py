@@ -100,7 +100,27 @@ error:
      card's measured times; then
      `python -m repro_torch.launch.analysis_server --smoke` in a fresh
      process (exit 0) and `LeoHttpd` with `LeoClient` over the three demo
-     traces, the wire's Diagnosis equal to the in-process one.
+     traces, the wire's Diagnosis equal to the in-process one;
+ 18. musicgen-medium (48 layers, GELU MLP, embeddings in), internvl2-2b
+     (24 layers, embeddings in), phi3.5-moe (8 of its 32 layers, MoE) and
+     deepseek-v2 (4 of its 60, MLA + MoE) at full width
+     (SLICE_ARCHS): each one's bf16 prefill (B 4 x S 1024) through
+     `make_prefill_step` with exact K1 and K2 launch counts
+     (SLICE_LAUNCHES); the kernel path against the forced-plain path in
+     f32 at the same depth (phase 6's rule), K1's band one key off outside
+     it, and each bf16 path against the f32 plain path (phase 6's bf16
+     gate; phase 4's numbers printed), the bf16 kernel path with K1's band
+     one key off outside that gate;
+     the MoE configurations with every MoE layer's routing probed on its
+     own input and each flip explained by its top-k margin, the plain path
+     following the kernel path's routing (`probe_routing`,
+     `follow_routing`); continuous-batching serve of each (K2 launches a
+     tick exact, a mid-stream admission equal to its solo run);
+     deepseek-v2's absorbed MLA decode after prefill against `forward`
+     (2e-5 of the largest logit, the reference's `wkv_b` layout outside);
+     LEO on phi3.5-moe's loss (4 layers) on `nvidia_h100_sxm`, its MoE
+     scatter-adds MEMORY_STORE.  Phase 3 also times K1 and K2 at these
+     shapes.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -475,16 +495,19 @@ def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
 
 def norm_launches(cfg, layer_descriptors) -> int:
     """RMSNorm launches of one token through `cfg`: `ln1` of every block,
-    `ln2` of every block with an FFN, the mLSTM's output norm, the final
+    `ln2` of every block with an FFN, the mLSTM's output norm, MLA's
+    `q_norm` (where the config has a q_lora_rank) and `kv_norm`, the final
     norm."""
-    return 1 + sum(1 + (ffn != "none") + (mixer == "mlstm")
+    mla = 1 + bool(cfg.q_lora_rank)
+    return 1 + sum(1 + (ffn != "none") + (mixer == "mlstm") +
+                   mla * (mixer == "mla")
                    for mixer, ffn in layer_descriptors(cfg))
 
 
 def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name,
-              norms: int):
+              norms: int, n_req: int = 12, new: int = 32):
     """`norms`: RMSNorm launches a decode tick (`norm_launches`)."""
-    slots, max_len, n_req, new = 8, 1024, 12, 32
+    slots, max_len = 8, 1024
     rng = np.random.default_rng(4)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
                                              size=int(rng.integers(16, 65)))]
@@ -538,7 +561,9 @@ def run_serve(torch, np, ops, cfg, params, ServeEngine, Request, gpu_name,
           f"slots, {engine.ticks} ticks, {seconds:.3f} s, {tokens} new tokens "
           f"({tokens / seconds:.1f} tokens/s; {fed} prompt tokens fed by "
           f"decode), {seconds / engine.ticks * 1e3:.3f} ms/tick, peak "
-          f"memory {peak / 2**30:.3f} GiB, launches {counts}; request "
+          f"memory {peak / 2**30:.3f} GiB, launches {counts} "
+          f"({counts['rmsnorm_pipelined'] / engine.ticks:g} K2 a tick); "
+          f"request "
           f"{late.rid} admitted mid-stream equals its solo run")
     return {"requests": n_req, "slots": slots, "ticks": engine.ticks,
             "seconds": seconds, "new_tokens": tokens, "prompt_tokens": fed,
@@ -2203,6 +2228,609 @@ def run_upper_tiers(core, loss_modules, loss_ms, ptx_modules, ptx_ms):
             "server": run_analysis_server(core, serve, server_module)}
 
 
+# -- phase 18 -----------------------------------------------------------------
+
+# The configurations of phase 18, each at full width: (name, layers), None
+# keeping the config's depth.  phi3.5-moe's 32 layers are 77.99 GiB of bf16
+# weights and deepseek-v2's 60 are 439.2 GiB (`models.weight_bytes`): cut
+# to a depth whose f32 weights one card holds beside a prefill (39.7 and
+# 49.6 GiB).  LEO captures phi3.5-moe's loss at MOE_LEO_LAYERS.
+SLICE_ARCHS = (("musicgen-medium", None), ("internvl2-2b", None),
+               ("phi3.5-moe-42b-a6.6b", 8), ("deepseek-v2-236b", 4))
+MOE_LEO_LAYERS = 4
+# K1 and K2 launches of one prefill of each at those depths: K1 once an
+# attention layer (none under MLA, whose q/k heads are 192 wide and v's
+# 128: no kernel takes two head dims); K2 at `ln1` and `ln2` of every
+# layer, MLA's `q_norm` and `kv_norm`, and the final norm
+SLICE_LAUNCHES = {"musicgen-medium": (48, 97), "internvl2-2b": (24, 49),
+                  "phi3.5-moe-42b-a6.6b": (8, 17),
+                  "deepseek-v2-236b": (0, 17)}
+SLICE_B, SLICE_S = 4, 1024
+# Routing flips between the kernel path and the plain path at one MoE
+# layer, on the same input (see `probe_routing`), are explained where the
+# plain path's top-k margin is within what the two norms' difference can
+# move it, and never less than ROUTE_FLOOR (the f32 router's own rounding).
+ROUTE_FLOOR = 1e-5
+
+
+def slice_inputs(torch, cfg, b: int, s: int):
+    """Phase 18's prefill batch from seed 3: tokens, or bf16 embeddings
+    (`standard_normal * 0.02`, as `tests/test_archs_smoke.py` makes them)
+    for the configurations with a modality front-end."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    if cfg.frontend != "none":
+        return {"embeds": (0.02 * torch.randn(
+            (b, s, cfg.d_model), generator=gen, device="cuda")).to(
+                torch.bfloat16)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device="cuda")}
+
+
+def probe_routing(torch, flags, modules, run, dt_name: str):
+    """`run()`, a kernel-path prefill, with every MoE layer's routing held
+    on its own input: the layer's `ln2` input, as the kernel path computed
+    it, is normed by K2 (the model's call) and by the plain RMSNorm, and
+    both outputs are routed (`moe.route`).  K2's output is held to the
+    plain one element by element (`compare`).  A token whose top-k set
+    differs between the two is a flip; it is explained where the plain
+    path's top-k margin (k-th less (k+1)-th probability) is at most
+    max(ROUTE_FLOOR, (p_k + p_k+1) * expm1(2 * L)), L = sum_i |h_i - h'_i|
+    * max_e |W_ie| bounding the change of any router logit: a right K2
+    passes by construction, whatever the seed.  Returns run()'s output and
+    one record a MoE layer, with the kernel path's expert ids (for
+    `follow_routing`)."""
+    tmod, moe_module = modules["transformer"], modules["moe"]
+    real_norm, real_moe = tmod.rmsnorm, moe_module.moe_forward
+    real_route = moe_module.route
+    last, layers = {}, []
+
+    def norm(x, scale, eps=1e-5):
+        out = real_norm(x, scale, eps)
+        last.update(x=x, scale=scale, eps=eps, out=out)
+        return out
+
+    def moe(p, h, cfg):
+        require(last.get("out") is h, "phase 18: a MoE layer's input is not "
+                "the norm just before it")
+        with flags(force_plain=True):
+            h_plain = real_norm(last["x"], last["scale"], last["eps"])
+        d, k = h.shape[-1], cfg.top_k
+        err, within, tol = compare(h, h_plain, dt_name, 1e-5)
+        rk = real_route(p, h.reshape(1, -1, d), cfg)
+        rp = real_route(p, h_plain.reshape(1, -1, d), cfg)
+        flips = (rk.expert_ids[0].sort(-1).values !=
+                 rp.expert_ids[0].sort(-1).values).any(-1)
+        shift = (h.float() - h_plain.float()).abs().reshape(-1, d) @ \
+            p["router"].float().abs().amax(-1)
+        ranked = rp.probs[0].sort(-1, descending=True).values
+        pair = ranked[:, k - 1] + ranked[:, k]
+        limit = (pair * torch.expm1(2 * shift)).clamp(min=ROUTE_FLOOR)
+        margin = rp.margin[0]
+        layers.append({
+            "tokens": int(flips.numel()), "flips": int(flips.sum()),
+            "margins": margin[flips].tolist(),
+            "limits": limit[flips].tolist(),
+            "unexplained": int((flips & (margin > limit)).sum()),
+            "min_margin": margin.min().item(),
+            "norm_max_abs_err": err, "norm_within": within, "norm_tol": tol,
+            "expert_ids": rk.expert_ids})
+        return real_moe(p, h, cfg)
+
+    tmod.rmsnorm, moe_module.moe_forward = norm, moe
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        tmod.rmsnorm, moe_module.moe_forward = real_norm, real_moe
+    return out, layers
+
+
+def forced_route(routing, expert_ids):
+    """`routing` (a `moe.Routing`) with its top-k choice replaced by
+    `expert_ids` (G, T, k), the gates read from its own probabilities at
+    those ids and renormalised, as `moe.route` reads them at its own."""
+    vals = routing.probs.gather(-1, expert_ids)
+    return routing._replace(
+        expert_ids=expert_ids,
+        gates=vals / vals.sum(-1, keepdim=True).clamp(min=1e-9))
+
+
+def follow_routing(torch, flags, modules, run, layers, force_plain=True):
+    """`run()`, on the forced-plain path unless `force_plain` is False,
+    with each MoE layer routed to the experts the kernel path chose there
+    (`probe_routing`'s records; `forced_route`): on the plain path the two
+    paths then differ only in the arithmetic of K1, K2 and their plain
+    versions."""
+    moe_module = modules["moe"]
+    real_route = moe_module.route
+    forced = iter(layer["expert_ids"] for layer in layers)
+
+    def route(p, xf, cfg):
+        return forced_route(real_route(p, xf, cfg), next(forced))
+
+    moe_module.route = route
+    try:
+        with flags(force_plain=force_plain):
+            out = run()
+        torch.cuda.synchronize()
+    finally:
+        moe_module.route = real_route
+    require(next(forced, None) is None, "phase 18: the forced routing was "
+            "not used by every MoE layer")
+    return out
+
+
+def logits_gap(kernel, plain):
+    """Max abs gap, the largest |plain| logit, mean abs gap, top-1
+    agreement."""
+    diff = (kernel - plain).abs()
+    top1 = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    return (diff.max().item(), plain.abs().max().item(), diff.mean().item(),
+            top1)
+
+
+def both_paths(torch, flags, modules, cfg, run):
+    """`run()` (one prefill) on the kernel path and on the forced-plain
+    path.  With MoE the kernel path's routing is probed layer by layer
+    (`probe_routing`, every flip explained) and the plain path follows it
+    (`follow_routing`).  Returns (kernel, plain, the probe's records)."""
+    if cfg.n_experts:
+        kernel, layers = probe_routing(torch, flags, modules, run, cfg.dtype)
+        plain = follow_routing(torch, flags, modules, run, layers)
+    else:
+        kernel, layers = run(), []
+        with flags(force_plain=True):
+            plain = run()
+        torch.cuda.synchronize()
+    return kernel, plain, layers
+
+
+def routing_row(cfg, layers):
+    """Phase 18's routing record of one probed prefill, printed and
+    gated: every flip explained, K2 within one step at every ln2."""
+    flips = sum(layer["flips"] for layer in layers)
+    unexplained = sum(layer["unexplained"] for layer in layers)
+    margins = [m for layer in layers for m in layer["margins"]]
+    limits = [m for layer in layers for m in layer["limits"]]
+    print(f"    {cfg.dtype} routing over {len(layers)} MoE layers x "
+          f"{layers[0]['tokens']} tokens: {flips} flips between K2 and "
+          f"the plain norm on the same input, plain margins "
+          f"{[f'{m:.3e}' for m in margins]} (limits "
+          f"{[f'{m:.3e}' for m in limits]}), {unexplained} unexplained; "
+          f"smallest margin {min(x['min_margin'] for x in layers):.3e}; "
+          f"K2 vs plain at ln2 max abs err "
+          f"{max(x['norm_max_abs_err'] for x in layers):.3e}")
+    require(all(layer["norm_within"] for layer in layers),
+            f"phase 18 {cfg.name}: K2 at a MoE layer's ln2 beyond "
+            f"{layers[0]['norm_tol']}")
+    require(unexplained == 0, f"phase 18 {cfg.name}: {unexplained} "
+            f"routing flips with margins beyond their limits")
+    return {"flips": flips, "flip_margins": margins, "flip_limits": limits,
+            "layers": [{k: v for k, v in layer.items() if k != "expert_ids"}
+                       for layer in layers]}
+
+
+def run_slice_prefill(torch, ops, cfg, params, flags, make_prefill_step,
+                      modules):
+    """The bf16 main path: B 4 x S 1024 through `make_prefill_step`, the
+    launch counts exact (SLICE_LAUNCHES), timed cold and once more; then
+    both paths on the same batch (`both_paths`) and, where the
+    configuration runs K1, the kernel path with K1's band one key off
+    (following the kernel path's routing), kept for the bf16 gate of
+    `run_slice_f32`."""
+    b, s = SLICE_B, SLICE_S
+    batch = slice_inputs(torch, cfg, b, s)
+    prefill = make_prefill_step(cfg)
+    prefill(params, {k: v[:, :128] for k, v in batch.items()})  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    bodies = dict(ops.flash_attention.body_launches)
+    t0 = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    warm_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(tuple(logits.shape) == (b, s, cfg.vocab_size) and
+            torch.isfinite(logits).all().item(),
+            f"phase 18 {cfg.name}: prefill logits {tuple(logits.shape)} or "
+            f"not finite")
+    k1, k2 = SLICE_LAUNCHES[cfg.name]
+    expect = {"flash_attention": k1, "rmsnorm_pipelined": k2,
+              "rmsnorm_baseline": 0, "ssm_scan": 0, "mlstm_chunkwise": 0,
+              "slstm_scan": 0}
+    require(counts == expect, f"phase 18 {cfg.name}: launches {counts}, "
+            f"expected {expect}")
+    require(bodies == {"tensor_core": k1, "cuda_core": 0},
+            f"phase 18 {cfg.name}: flash_attention bodies {bodies}")
+    del logits
+    print(f"  {cfg.name} bf16 prefill B{b} S{s} "
+          f"({'embeddings' if 'embeds' in batch else 'tokens'}): "
+          f"{seconds:.3f} s (again {warm_seconds:.4f} s), launches {counts}, "
+          f"peak memory {peak / 2**30:.3f} GiB")
+    run = lambda: prefill(params, batch)  # noqa: E731
+    kernel, plain, layers = both_paths(torch, flags, modules, cfg, run)
+    faulty = None
+    if k1:
+        real = modules["attention"].flash_attention
+        modules["attention"].flash_attention = shifted_keys_attention(real)
+        try:
+            if layers:
+                faulty = follow_routing(torch, flags, modules, run, layers,
+                                        force_plain=False)
+            else:
+                faulty = run()
+                torch.cuda.synchronize()
+        finally:
+            modules["attention"].flash_attention = real
+    row = {"B": b, "S": s, "layers": cfg.n_layers, "seconds": seconds,
+           "warm_seconds": warm_seconds, "peak_bytes": peak,
+           "launches": counts, "flash_attention_bodies": bodies}
+    if layers:
+        row["routing"] = routing_row(cfg, layers)
+    return row, (kernel, plain, layers, faulty)
+
+
+def run_slice_f32(torch, cfg, flags, make_prefill_step, init_params,
+                  modules, bf16):
+    """The same configuration in f32 at the same depth, on the weights the
+    bf16 run rounded (`init_params` draws in f32 and casts).
+    * f32: the kernel path against the forced-plain path, phase 6's rule
+      (2e-3 of the largest logit, top-1 agreement >= 0.99), every routing
+      flip explained; K1's band one key off outside it where the
+      configuration runs K1.
+    * bf16: phase 4's rule (2e-2) cannot hold at every depth: bf16 moves
+      random-weight logits by more under any change in the order of
+      rounding (C-watch 5; musicgen-medium's 48 layers read 2.2e-2).  So,
+      as phase 6, each bf16 path is held against the f32 plain path
+      following the bf16 kernel path's routing: the kernel path's mean abs
+      error at most 1.1x the plain path's, its top-1 agreement at most
+      0.02 lower; phase 4's numbers are printed beside.  The bf16 kernel
+      path with K1's band one key off, where the configuration runs K1,
+      must fall outside this gate."""
+    kernel16, plain16, layers16, faulty16 = bf16
+    cfg32 = replace(cfg, dtype="float32")
+    params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    batch = slice_inputs(torch, cfg32, SLICE_B, SLICE_S)
+    prefill = make_prefill_step(cfg32)
+    run = lambda: prefill(params, batch)  # noqa: E731
+    t0 = time.perf_counter()
+    kernel, plain, layers = both_paths(torch, flags, modules, cfg32, run)
+    seconds = time.perf_counter() - t0
+    err, scale, _, top1 = logits_gap(kernel, plain)
+    rel_tol = 2e-3
+    row = {"dtype": "float32", "layers": cfg32.n_layers, "seconds": seconds,
+           "max_abs_err": err, "max_abs_logit": scale, "top1": top1,
+           "rel_tol": rel_tol}
+    if layers:
+        row["routing"] = routing_row(cfg32, layers)
+    del kernel, plain
+    print(f"    float32 at {cfg32.n_layers} layers: logits max|kernel-plain| "
+          f"{err:.4e} of max|logit| {scale:.3f} (tol {rel_tol:g} x "
+          f"max|logit|), top-1 agreement {top1:.5f}")
+    require(err <= rel_tol * scale, f"phase 18 {cfg.name} f32: kernel vs "
+            f"plain logits differ by {err}")
+    require(top1 >= 0.99, f"phase 18 {cfg.name} f32: top-1 agreement "
+            f"{top1} < 0.99")
+    if SLICE_LAUNCHES[cfg.name][0]:
+        real = modules["attention"].flash_attention
+        modules["attention"].flash_attention = shifted_keys_attention(real)
+        try:
+            f_kernel, f_plain, _ = both_paths(torch, flags, modules, cfg32,
+                                              run)
+        finally:
+            modules["attention"].flash_attention = real
+        f_err, f_scale, _, _ = logits_gap(f_kernel, f_plain)
+        del f_kernel, f_plain
+        row["band_one_key_off"] = f_err
+        print(f"    float32, K1's band one key off: {f_err:.4e} of "
+              f"{f_scale:.3f}")
+        require(f_err > rel_tol * f_scale, f"phase 18 {cfg.name}: K1 with "
+                f"its band one key off gives {f_err}, within {rel_tol} x "
+                f"{f_scale}: the check cannot see it")
+
+    # the bf16 gate: both bf16 paths against the f32 plain path
+    if layers16:
+        truth = follow_routing(torch, flags, modules, run, layers16)
+    else:
+        with flags(force_plain=True):
+            truth = run()
+    drift = {"kernel": logits_gap(kernel16, truth),
+             "plain": logits_gap(plain16, truth),
+             "kernel_vs_plain": logits_gap(kernel16, plain16)}
+    if faulty16 is not None:
+        drift["band_one_key_off"] = logits_gap(faulty16, truth)
+    del truth, params
+    torch.cuda.empty_cache()
+    (_, _, k_mean, k_top1), (_, _, p_mean, p_top1) = \
+        drift["kernel"], drift["plain"]
+    kp_err, kp_scale, _, kp_top1 = drift["kernel_vs_plain"]
+    print(f"    bfloat16 at {cfg.n_layers} layers, against the f32 plain "
+          f"path: kernel mean {k_mean:.5f} top-1 {k_top1:.5f}, plain mean "
+          f"{p_mean:.5f} top-1 {p_top1:.5f} (gate: mean <= 1.1x, top-1 >= "
+          f"plain's - 0.02); kernel vs plain (phase 4's rule, printed): "
+          f"{kp_err:.4e} of {kp_scale:.3f} ({kp_err / kp_scale:.4f}), top-1 "
+          f"{kp_top1:.5f}")
+    require(k_mean <= 1.1 * p_mean and k_top1 >= p_top1 - 0.02,
+            f"phase 18 {cfg.name} bf16: kernel path mean error {k_mean}, "
+            f"top-1 {k_top1} vs f32; plain path {p_mean}, {p_top1}")
+    if faulty16 is not None:
+        _, _, f_mean, f_top1 = drift["band_one_key_off"]
+        print(f"    bfloat16, K1's band one key off, against the f32 plain "
+              f"path: mean {f_mean:.5f} ({f_mean / p_mean:.3f}x the plain "
+              f"path's), top-1 {f_top1:.5f}")
+        require(f_mean > 1.1 * p_mean or f_top1 < p_top1 - 0.02,
+                f"phase 18 {cfg.name} bf16: K1 with its band one key off "
+                f"gives mean error {f_mean}, top-1 {f_top1}, within the "
+                f"gate (plain path {p_mean}, {p_top1}): the gate cannot "
+                f"see it")
+    row["bf16_drift"] = {k: dict(zip(("max", "scale", "mean", "top1"), v))
+                         for k, v in drift.items()}
+    return row
+
+
+def run_mla_decode(torch, cfg, init_params, forward, ServeEngine, Request):
+    """deepseek-v2 at full width, 2 layers (one dense, one MoE), f32: a
+    prompt of 64 tokens fed through the absorbed MLA decode (one slot), its
+    last 8 logits against `forward`'s on the same tokens, within 2e-5 of the
+    largest logit (phase 8's rule).  The capacity factor is raised to
+    E / k so `forward`'s routing of the 64 tokens drops nothing: decode
+    routes each token alone, and the two routings differ only in drops.
+    Decode reading `wkv_b` in the reference's decode layout (every head's
+    nope columns, then every head's v columns) must fall outside."""
+    cfg = replace(cfg, n_layers=2, dtype="float32",
+                  capacity_factor=cfg.n_experts / cfg.top_k)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_prompt, last = 64, 8
+    prompt = torch.randint(0, cfg.vocab_size, (n_prompt,), generator=gen,
+                           device="cuda").tolist()
+    full, _ = forward(params, cfg, torch.tensor([prompt], device="cuda"),
+                      chunk=64)
+    expect = full[0, n_prompt - last:]
+    scale = expect.abs().max().item()
+
+    def decoded(p):
+        engine = ServeEngine(cfg, p, batch_slots=1, max_len=128)
+        engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+        out = []
+        while engine.active:
+            engine.tick()
+            if engine.ticks > n_prompt - last:
+                out.append(engine.last_logits[0].clone())
+        return torch.stack(out)
+
+    t0 = time.perf_counter()
+    got = decoded(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    err = (got - expect).abs().max().item()
+    same_top1 = bool((got.argmax(-1) == expect.argmax(-1)).all().item())
+    h, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    swapped = {**params, "groups": []}
+    for group in params["groups"]:
+        w = group["attn"]["wkv_b"]
+        per_head = w.reshape(w.shape[:-1] + (h, -1))
+        w_ref = torch.cat([per_head[..., :nope].flatten(-2),
+                           per_head[..., nope:].flatten(-2)], dim=-1)
+        swapped["groups"].append({**group, "attn": {**group["attn"],
+                                                    "wkv_b": w_ref}})
+    layout_err = (decoded(swapped) - expect).abs().max().item()
+    rel_tol = 2e-5
+    print(f"  deepseek-v2 MLA decode after prefill ({cfg.n_layers} layers, "
+          f"f32, {n_prompt} prompt tokens by decode in {seconds:.3f} s): "
+          f"last {last} logits max|decode-forward| {err:.3e} of max|logit| "
+          f"{scale:.3f} (tol {rel_tol:g} x max|logit|), same top-1: "
+          f"{same_top1}; wkv_b in the reference's decode layout: "
+          f"{layout_err:.3e}")
+    require(err <= rel_tol * scale, f"phase 18: MLA decode vs forward "
+            f"logits differ by {err}")
+    require(same_top1, "phase 18: MLA decode and forward disagree on a "
+            "top-1")
+    require(layout_err > rel_tol * scale, f"phase 18: decode in the "
+            f"reference's wkv_b layout gives {layout_err}, within the "
+            f"tolerance: the check cannot see it")
+    del params, swapped
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "prompt": n_prompt, "seconds": seconds,
+            "max_abs_err": err, "max_abs_logit": scale,
+            "reference_layout_err": layout_err}
+
+
+def run_moe_leo(torch, core, cfg, params, loss_fn, layers: int):
+    """LEO on phi3.5-moe's loss at full width, `layers` deep (the first
+    layers of the main path's weights), B 4 x S 1024, bf16: captured and
+    diagnosed on `nvidia_h100_sxm`; its estimate beside the card's time of
+    the same loss, and the MoE's scatter-adds classed MEMORY_STORE (two a
+    MoE layer: the aux counts and the dispatch)."""
+    cfg = replace(cfg, n_layers=layers)
+
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:layers]
+
+    params = {**params, "groups": [first(g) for g in params["groups"]]}
+    batch = slice_inputs(torch, cfg, SLICE_B, SLICE_S)
+    batch["labels"] = batch["tokens"]
+    loss = lambda: loss_fn(params, cfg, batch)  # noqa: E731
+    measured_ms = call_ms(torch, loss, samples=5, reps=2)
+    t0 = time.perf_counter()
+    module = core.capture(lambda p, b: loss_fn(p, cfg, b), params, batch,
+                          name="loss_moe")
+    capture_s = time.perf_counter() - t0
+    an = core.analyze_module(module, core.get_backend("nvidia_h100_sxm"))
+    instructions = list(module.all_instructions())
+    stores = [i for i in instructions if i.opcode == "index_add" and
+              i.op_class is core.OpClass.MEMORY_STORE]
+    moe_layers = max(0, layers - cfg.first_dense_layers)
+    row = {"layers": layers, "instructions": len(instructions),
+           "kernel_regions": module.kernel_calls, "capture_s": capture_s,
+           "estimated_step_s": an.estimated_step_seconds,
+           "measured_ms": measured_ms, "moe_scatter_stores": len(stores),
+           "chains": len(an.chains)}
+    print(f"  LEO on {cfg.name}'s loss ({layers} layers, B{SLICE_B} "
+          f"S{SLICE_S}, bf16): {len(instructions)} instructions (regions "
+          f"{module.kernel_calls}) captured in {capture_s:.2f} s; LEO "
+          f"estimate {an.estimated_step_seconds * 1e3:.3f} ms beside "
+          f"{measured_ms:.3f} ms measured; {len(stores)} MoE scatter-adds "
+          f"classed MEMORY_STORE; {len(an.chains)} chains")
+    require(len(stores) == 2 * moe_layers, f"phase 18: {len(stores)} MoE "
+            f"scatter-adds classed MEMORY_STORE, expected {2 * moe_layers}")
+    require(an.chains or an.blame.occupancy_blame,
+            "phase 18: LEO produced no diagnosis of the MoE loss")
+    return row
+
+
+def time_parts(torch, run, parts):
+    """Device time of each named function while `run()` runs: CUDA events
+    recorded on the stream before and after every call (`parts`: name ->
+    (module, attribute), patched for the run), summed; and of the whole
+    run.  Events mark the stream, so where the host falls behind the card
+    a part's time holds the card's wait too; nested parts are counted in
+    their parents."""
+    events = {name: [] for name in parts}
+    saved = []
+    for name, (module, attr) in parts.items():
+        real = getattr(module, attr)
+
+        def timed(*args, _real=real, _name=name, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _real(*args, **kwargs)
+            end.record()
+            events[_name].append((start, end))
+            return out
+
+        saved.append((module, attr, real))
+        setattr(module, attr, timed)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for module, attr, real in saved:
+            setattr(module, attr, real)
+    ms = {name: sum(a.elapsed_time(b) for a, b in evs)
+          for name, evs in events.items()}
+    ms["calls"] = {name: len(evs) for name, evs in events.items()}
+    ms["total"] = start.elapsed_time(end)
+    return ms
+
+
+def moe_time_parts(torch, np, cfg, params, modules, make_prefill_step,
+                   ServeEngine, Request, ticks: int = 16):
+    """Where the time goes in one bf16 MoE prefill (B 4 x S 1024) and in a
+    steady decode tick (8 slots), printed, not gated: the MoE layer
+    (`moe_groups`) and, inside it, the routing (`route`: router product,
+    softmax, sort, aux), the dispatch's sort and ranks (`dispatch`), the
+    expert products (`_experts`) and the shared experts (`mlp`), the rest
+    being the buffer fill and the combine; K1, K2, and MLA's attention
+    (`chunked_attention` in prefill, `mla_decode` a tick)."""
+    moe, attn, tmod = modules["moe"], modules["attention"], \
+        modules["transformer"]
+    parts = {"moe": (moe, "moe_groups"), "route": (moe, "route"),
+             "dispatch": (moe, "dispatch"), "experts": (moe, "_experts"),
+             "shared": (moe, "mlp"), "K1": (attn, "flash_attention"),
+             "K2 (ln1, ln2, final)": (tmod, "rmsnorm"),
+             "K2 (MLA norms)": (attn, "rmsnorm")}
+    if cfg.attention == "mla":
+        parts["MLA attention"] = (attn, "chunked_attention")
+    batch = slice_inputs(torch, cfg, SLICE_B, SLICE_S)
+    prefill = make_prefill_step(cfg)
+    prefill_ms = time_parts(torch, lambda: prefill(params, batch), parts)
+    if cfg.attention == "mla":
+        parts["MLA attention"] = (attn, "mla_decode")
+    rng = np.random.default_rng(5)
+    engine = ServeEngine(cfg, params, 8, 1024)
+    for i in range(8):
+        engine.submit(Request(rid=i, prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, size=16)], max_new_tokens=ticks + 16))
+    for _ in range(8):
+        engine.tick()
+
+    def steady():
+        for _ in range(ticks):
+            engine.tick()
+
+    tick_ms = time_parts(torch, steady, parts)
+    tick_ms = {k: (v if k == "calls" else v / ticks)
+               for k, v in tick_ms.items()}
+    for name, row in (("prefill", prefill_ms), ("decode tick", tick_ms)):
+        rest = row["moe"] - sum(row[k] for k in ("route", "dispatch",
+                                                   "experts", "shared"))
+        row["fill_and_combine"] = rest
+        print(f"    {cfg.name} {name} ({row['total']:.3f} ms on the "
+              f"stream): " + ", ".join(
+                  f"{k} {row[k]:.3f}" for k in (
+                      "moe", "route", "dispatch", "experts", "shared",
+                      "fill_and_combine", "K1", "K2 (ln1, ln2, final)",
+                      "K2 (MLA norms)", "MLA attention") if k in row)
+              + " ms")
+    return {"prefill": prefill_ms, "decode_tick": tick_ms}
+
+
+def run_slice(torch, np, ops, core, flags, get_config, init_params, forward,
+              loss_fn, make_prefill_step, ServeEngine, Request, gpu_name,
+              layer_descriptors, modules):
+    """Phase 18 for each configuration of SLICE_ARCHS: the bf16 prefill
+    (launch counts, the kernel path against the plain path), the f32
+    comparison, continuous-batching serve; deepseek-v2's MLA decode after
+    prefill; LEO on phi3.5-moe's loss."""
+    out = {}
+    for name, layers in SLICE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if layers:
+            cfg = replace(cfg, n_layers=layers)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0))
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"  {name} at full width ({cfg.n_layers} layers"
+              f"{'' if layers is None else ' of ' + str(get_config(name).n_layers)}"
+              f", d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+              f"{cfg.dtype}, random weights from seed 0)")
+        torch.cuda.reset_peak_memory_stats()
+        row = {}
+        row["prefill"], bf16 = run_slice_prefill(
+            torch, ops, cfg, params, flags, make_prefill_step, modules)
+        moe = cfg.n_experts > 0
+        serve = run_serve(torch, np, ops, cfg, params, ServeEngine, Request,
+                          gpu_name, norm_launches(cfg, layer_descriptors),
+                          n_req=10 if moe else 12, new=16 if moe else 32)
+        serve["norms_per_tick"] = norm_launches(cfg, layer_descriptors)
+        row["serve"] = serve
+        if moe:
+            row["time_parts"] = moe_time_parts(
+                torch, np, cfg, params, modules, make_prefill_step,
+                ServeEngine, Request)
+        if name == "phi3.5-moe-42b-a6.6b":
+            row["leo"] = run_moe_leo(torch, core, cfg, params, loss_fn,
+                                     MOE_LEO_LAYERS)
+        del params
+        torch.cuda.empty_cache()
+        row["f32"] = run_slice_f32(torch, cfg, flags, make_prefill_step,
+                                   init_params, modules, bf16)
+        del bf16
+        torch.cuda.empty_cache()
+        if cfg.attention == "mla":
+            row["mla_decode"] = run_mla_decode(
+                torch, get_config(name), init_params, forward, ServeEngine,
+                Request)
+        row["seconds"] = time.perf_counter() - t0
+        print(f"  {name}: {row['seconds']:.1f} s")
+        out[name] = row
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -2232,6 +2860,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.slstm_scan import MAX_ROWS as SLSTM_ROWS
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models import transformer as transformer_module
     from repro_torch.models import xlstm as xlstm_module
     from repro_torch.models import (forward, init_params, layer_descriptors,
                                     loss_fn)
@@ -2349,11 +2979,22 @@ def main(argv=None) -> int:
                                      hd=120),
                check_flash_attention(torch, ops, F, dt, b=1, h=32, kv=8,
                                      hd=120, window=256)]
+    # phase 18's attention shapes (B 4 x S 1024): musicgen-medium's 24 / 24
+    # heads of 64, internvl2-2b's 16 / 8 and phi3.5-moe's 32 / 8 of 128
+    slice_fa = [check_flash_attention(torch, ops, F, "bfloat16", timed=True,
+                                      h=h_, kv=kv_, hd=hd_)
+                for h_, kv_, hd_ in ((24, 24, 64), (16, 8, 128),
+                                     (32, 8, 128))]
     # rows of a decode tick (8 slots) and of a prefill (4096 tokens) at
     # qwen2-0.5b's width and at hymba-1.5b's
     rms = [check_rmsnorm(torch, ops, F, dt, r, d)
            for d in (896, 1600) for r in (8, 4096)
            for dt in ("bfloat16", "float32")]
+    # bf16 rows of phase 18's norms: musicgen-medium's d_model and MLA's
+    # q_norm (1536), internvl2-2b's (2048), phi3.5-moe's (4096),
+    # deepseek-v2's (5120) and MLA's kv_norm (512)
+    slice_rms = [check_rmsnorm(torch, ops, F, "bfloat16", r, d)
+                 for d in (1536, 2048, 4096, 5120, 512) for r in (4096, 8)]
     # f32 rows of h2o-danube-3-4b (3840) and glm4-9b / phi3.5-moe (4096):
     # 32 chunks a lane, scale in shared memory beside a ring of 7 or 6
     # rows a stage (K2) or read as the row is scaled (K3)
@@ -2499,19 +3140,33 @@ def main(argv=None) -> int:
           f"PTX of K2 and K3 on {UPPER_BACKEND}")
     upper = run_upper_tiers(core, loss_modules, loss_ms, ptx_modules, ptx_ms)
 
+    # phase 18
+    print(f"phase 18: {', '.join(name for name, _ in SLICE_ARCHS)} at "
+          f"full width through K1 and K2 ({smi})")
+    t0 = time.perf_counter()
+    sliced = run_slice(
+        torch, np, ops, core, flags, get_config, init_params, forward,
+        loss_fn, make_prefill_step, ServeEngine, Request, gpu_name,
+        layer_descriptors, {"transformer": transformer_module,
+                            "moe": moe_module,
+                            "attention": attention_module})
+    print(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
     main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
     main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
-                 xserve, trained, driven)
+                 xserve, trained, driven) + tuple(
+                     row[part] for row in sliced.values()
+                     for part in ("prefill", "serve"))
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:99",
          "launches": sum(r["launches"]["flash_attention"]
                          for r in main_runs),
-         "max_abs_err": max(r["max_abs_err"] for r in fa),
+         "max_abs_err": max(r["max_abs_err"] for r in fa + slice_fa),
          "ms": main_fa["ms"], "plain_ms": main_fa["plain_ms"],
          "bound_ms": main_fa["bound_ms"], "bound_by": main_fa["bound_by"],
          "library_ms": main_fa["library_ms"],
@@ -2536,7 +3191,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:90",
          "launches": sum(r["launches"]["rmsnorm_pipelined"]
                          for r in main_runs),
-         "max_abs_err": max(r["max_abs_err"] for r in rms + wide_rms),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in rms + wide_rms + slice_rms),
          "ms": main_rms["ms"], "plain_ms": main_rms["plain_ms"],
          "bound_ms": main_rms["bound_ms"], "bound_by": main_rms["bound_by"],
          "library_ms": main_rms["library_ms"]},
@@ -2592,6 +3248,8 @@ def main(argv=None) -> int:
         "leo_loop": loop, "mlstm_chunkwise": mlstm, "slstm_scan": slstm,
         "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
         "train_driver": driven, "upper_tiers": upper,
+        "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
+        "slice": sliced,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -78,7 +78,7 @@ _OP_CLASS = {
     "arange": OpClass.MEMORY_LOAD, "nll_loss_forward": OpClass.MEMORY_LOAD,
     "index_put": OpClass.MEMORY_STORE, "_index_put_impl": OpClass.MEMORY_STORE,
     "scatter": OpClass.MEMORY_STORE, "scatter_add": OpClass.MEMORY_STORE,
-    "index_copy": OpClass.MEMORY_STORE,
+    "index_copy": OpClass.MEMORY_STORE, "index_add": OpClass.MEMORY_STORE,
     "_to_copy": OpClass.DATA_MOVEMENT, "clone": OpClass.DATA_MOVEMENT,
     "copy": OpClass.DATA_MOVEMENT, "cat": OpClass.DATA_MOVEMENT,
     "stack": OpClass.DATA_MOVEMENT, "repeat": OpClass.DATA_MOVEMENT,

@@ -12,6 +12,19 @@ enter by teacher-forced decode of their tokens (prefill-by-decode).
   python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
   python -m repro_torch.launch.serve --arch xlstm-125m   # mLSTM + sLSTM
   python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
+  python -m repro_torch.launch.serve --arch musicgen-medium     # GELU MLP
+  python -m repro_torch.launch.serve --arch internvl2-2b
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --layers 8
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b --smoke \
+      --device cpu                                         # MLA + MoE
+
+Every configuration is served by tokens, as the reference's engine serves
+them (musicgen-medium's and internvl2-2b's front-ends give embeddings to
+prefill, not to decode).  On the card a configuration whose weights exceed
+the card's memory is refused before anything is allocated: phi3.5-moe
+(77.99 GiB of bf16 weights) and deepseek-v2 (445.9 GiB) serve on one H100
+only with their depth cut (`--layers`).
 """
 from __future__ import annotations
 
@@ -132,6 +145,21 @@ class ServeEngine:
             self.tick()
 
 
+def check_fits(cfg, total_bytes: int) -> int:
+    """The bytes of `cfg`'s weights (`models.weight_bytes`, counted on
+    shapes); raises ValueError where they exceed `total_bytes`."""
+    from ..models import weight_bytes
+
+    need = weight_bytes(cfg)
+    if need > total_bytes:
+        raise ValueError(
+            f"{cfg.name} at {cfg.n_layers} layers: {need} bytes of weights "
+            f"({need / 2**30:.2f} GiB), more than the card's {total_bytes} "
+            f"bytes ({total_bytes / 2**30:.2f} GiB); cut its depth with "
+            f"--layers")
+    return need
+
+
 def main(argv=None) -> Dict[int, List[int]]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -141,8 +169,12 @@ def main(argv=None) -> Dict[int, List[int]]:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced smoke config, not full width")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+
+    from dataclasses import replace
 
     from ..configs import get_config, smoke_config
     from ..models import init_params
@@ -150,6 +182,10 @@ def main(argv=None) -> Dict[int, List[int]]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers:
+        cfg = replace(cfg, n_layers=args.layers)
+    if torch.device(args.device).type == "cuda":
+        check_fits(cfg, torch.cuda.get_device_properties(0).total_memory)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = init_params(cfg, gen, device=args.device)
     engine = ServeEngine(cfg, params, args.slots, args.max_len, args.device)

@@ -1,13 +1,22 @@
-"""GQA attention, causal or sliding-window (the port of the GQA part of
+"""Attention: GQA, causal or sliding-window, and MLA (the port of
 `repro.models.attention`).
 
-Prefill runs the flash-attention kernel on CUDA tensors; `chunked_attention`
-is the plain path (CPU tensors, `flags(attention_impl="plain")` or
-`flags(force_plain=True)`).  Decode is
+GQA prefill runs the flash-attention kernel on CUDA tensors;
+`chunked_attention` is the plain path (CPU tensors,
+`flags(attention_impl="plain")` or `flags(force_plain=True)`).  Decode is
 plain PyTorch, as the reference's `decode_attention` is plain jnp, against a
 layer-stacked KV cache (L, B, S, Kv, hd) with one position per batch slot;
 under sliding-window attention the cache is a ring of `min(max_len,
-window)` entries.  MLA belongs to a later slice of the port.
+window)` entries.
+
+MLA (DeepSeek-V2's multi-head latent attention) prefills through
+`chunked_attention` on every device, by design: its q/k heads are qk_nope +
+qk_rope wide (192 at full width) and its v heads v_head_dim (128), and the
+flash-attention kernel, as the reference's Pallas kernel, takes one head
+dim for q, k and v.  Its norms (`q_norm`, `kv_norm`) go through the RMSNorm
+kernel as every norm does.  Decode is the reference's absorbed form against
+a compressed, layer-stacked cache {"kv_c" (L, B, S, kv_lora), "k_rope" (L,
+B, S, qk_rope)}, one position per batch slot.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from ..configs.base import ArchConfig
 from ..core.torch_frontend import kernel_call
 from ..kernels.flash_attention import flash_attention
 from .flags import get_flags
-from .layers import apply_rope, linear, rope_cos_sin
+from .layers import apply_rope, linear, rmsnorm, rope_cos_sin
 
 Params = Dict[str, torch.Tensor]
 
@@ -32,8 +41,9 @@ def _window(cfg: ArchConfig) -> Optional[int]:
     """The sliding window of `cfg`, None for full causal attention."""
     if cfg.attention not in ("full", "swa"):
         raise NotImplementedError(
-            f"attention={cfg.attention!r} ({cfg.name}) is not ported yet; "
-            f"the port serves full and sliding-window GQA attention")
+            f"attention={cfg.attention!r} ({cfg.name}) is not GQA: this "
+            f"path takes full and sliding-window attention (MLA runs "
+            f"`mla_forward` and `mla_decode`)")
     return cfg.window if cfg.attention == "swa" else None
 
 
@@ -177,3 +187,160 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
         valid = valid | (pos[:, None] >= cache_len)
     out = decode_attention(q, k_cache, v_cache, valid)
     return linear(out.reshape(b, h * hd), p["wo"])
+
+
+# -- MLA (DeepSeek-V2 multi-head latent attention) -----------------------------
+
+def init_mla(cfg: ArchConfig, reps: int, normal, dtype: torch.dtype,
+             device) -> Params:
+    """Layer-stacked params (leading `reps` axis) with the reference's
+    shapes: the low-rank query (`wq_a`, `q_norm`, `wq_b`) where the config
+    has a q_lora_rank, else `wq`; the compressed KV (`wkv_a`, `kv_norm`,
+    `wkv_b`) and `wo`."""
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = normal((reps, d, cfg.q_lora_rank), 0.02, dtype)
+        p["q_norm"] = torch.ones((reps, cfg.q_lora_rank), dtype=dtype,
+                                 device=device)
+        p["wq_b"] = normal((reps, cfg.q_lora_rank, h * (nope + rope_d)),
+                           0.02, dtype)
+    else:
+        p["wq"] = normal((reps, d, h * (nope + rope_d)), 0.02, dtype)
+    p["wkv_a"] = normal((reps, d, cfg.kv_lora_rank + rope_d), 0.02, dtype)
+    p["kv_norm"] = torch.ones((reps, cfg.kv_lora_rank), dtype=dtype,
+                              device=device)
+    p["wkv_b"] = normal((reps, cfg.kv_lora_rank, h * (nope + vd)), 0.02,
+                        dtype)
+    p["wo"] = normal((reps, h * vd, d), 0.02, dtype)
+    return p
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor):
+    """x (B, S, d), positions broadcastable to (B, S) -> q_nope (B, S, H,
+    nope), q_rope (B, S, H, rope) with RoPE applied."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        q = linear(rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps),
+                   p["wq_b"])
+    else:
+        q = linear(x, p["wq"])
+    q = q.reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_kv(p: Params, x: torch.Tensor, cfg: ArchConfig,
+            positions: torch.Tensor):
+    """x (B, S, d) -> the compressed KV kv_c (B, S, r), normed, and the
+    one shared RoPE key k_rope (B, S, 1, rope)."""
+    r = cfg.kv_lora_rank
+    kv = linear(x, p["wkv_a"])
+    # the slice copied into dense rows, which the RMSNorm kernel takes (a
+    # clone: `.contiguous()` of a fake CUDA tensor fails in a CPU capture)
+    kv_c = rmsnorm(kv[..., :r].clone(memory_format=torch.contiguous_format),
+                   p["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    return kv_c, apply_rope(kv[..., None, r:], cos, sin)
+
+
+def mla_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Full-sequence MLA (prefill): the compressed KV decompressed per head,
+    the one RoPE key broadcast to all H heads, and `chunked_attention` with
+    q/k heads of nope + rope and v heads of v_head_dim (module docstring:
+    no kernel takes two head dims).  Its scale, 1/sqrt(q's head dim), is
+    the absorbed decode's 1/sqrt(nope + rope)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    kv_c, k_rope = _mla_kv(p, x, cfg, positions)
+    kv_up = linear(kv_c, p["wkv_b"]).reshape(b, s, h, nope + vd)
+    k_nope, v = kv_up[..., :nope], kv_up[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = chunked_attention(q, k, v, chunk=chunk)
+    return linear(out.reshape(b, s, h * vd), p["wo"])
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device) -> Params:
+    return {"kv_c": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
+               cfg: ArchConfig, layer_idx: int) -> torch.Tensor:
+    """Absorbed-projection MLA decode: scores in kv_lora space, O(r) per
+    cached token instead of per-head decompression.  x (B, d); pos (B,)
+    int, one position per batch slot.  `cache` holds the layer-stacked
+    compressed cache (L, B, S, r) and (L, B, S, rope); the new token is
+    written in place at (layer_idx, b, pos[b]) (see `attn_decode`).
+    Returns y (B, d)."""
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x[:, None], cfg, pos[:, None])
+    kv_c, k_rope = _mla_kv(p, x[:, None], cfg, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    cache["kv_c"][layer_idx, rows, pos] = kv_c[:, 0].to(cache["kv_c"].dtype)
+    cache["k_rope"][layer_idx, rows, pos] = k_rope[:, 0, 0].to(
+        cache["k_rope"].dtype)
+    return _mla_decode_core(p, x, cfg, q_nope[:, 0], q_rope[:, 0],
+                            cache["kv_c"][layer_idx],
+                            cache["k_rope"][layer_idx], pos)
+
+
+def _mla_decode_core(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                     q_nope: torch.Tensor, q_rope: torch.Tensor,
+                     kv_cache: torch.Tensor, kr_cache: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """The reference's `_mla_decode_core`, cast for cast: each einsum takes
+    its operands in their dtypes and accumulates in f32 (the reference's
+    `preferred_element_type=f32`: products of bf16 values are exact in
+    f32), `q_c` is rounded to the cache's dtype before the scores, the
+    probabilities before the context, the context to x's dtype before W_uv.
+
+    W_uk and W_uv are read from `wkv_b` in the layout `mla_forward`
+    decompresses with: (r, H, nope + vd), each head's nope columns then its
+    vd columns.  The reference's decode reads the first H * nope columns
+    as W_uk (r, H, nope) and the rest as W_uv, another layout, so there
+    decode does not continue what prefill computed (2e-2 of the largest
+    logit apart at deepseek-v2 smoke).  Here it does; on the reference's
+    weights with `wkv_b`'s columns permuted into its decode layout, the
+    reference's decode gives this one's numbers
+    (`tests/test_torch_mla.py`)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    w_b = p["wkv_b"].reshape(r, h, nope + vd)
+    # Absorb W_uk into q: q_c (B, H, r)
+    w_uk = w_b[..., :nope]
+    q_c = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk.float())
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    q_c = q_c.to(kv_cache.dtype)
+    scores = (torch.einsum("bhr,bsr->bhs", q_c.float(), kv_cache.float()) +
+              torch.einsum("bhd,bsd->bhs",
+                           q_rope.to(kr_cache.dtype).float(),
+                           kr_cache.float())) * scale
+    valid = torch.arange(kv_cache.shape[1], device=x.device)[None, :] <= \
+        pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], _NEG_INF)
+    pattn = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pattn.to(kv_cache.dtype).float(),
+                       kv_cache.float())
+    # Absorb W_uv on the way out: (B, H, r) x (r, H, vd) -> (B, H, vd)
+    w_uv = w_b[..., nope:]
+    out = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype).float(),
+                       w_uv.float())
+    return linear(out.reshape(b, h * vd).to(x.dtype), p["wo"])

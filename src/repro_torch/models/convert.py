@@ -37,8 +37,11 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's param tree (numpy leaves) as the port's params, each
     leaf in the dtype the reference gives it: the config's dtype for most,
     f32 for those the reference keeps in f32 whatever the config says (the
-    SSM's `w_dt`, `a_log` and `d_skip`, the mLSTM's `w_if`).  Blocks
-    without an FFN (xLSTM) carry no `ln2`/`ffn` leaves, as there."""
+    SSM's `w_dt`, `a_log` and `d_skip`, the mLSTM's `w_if`, the MoE
+    router).  Blocks without an FFN (xLSTM) carry no `ln2`/`ffn` leaves, as
+    there; MoE blocks carry the experts' stacks and, where the config has
+    shared experts, `shared`; MLA blocks their low-rank projections and
+    norms under `attn`."""
     table = tree["embed"]["table"]
     if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embedding {tuple(table.shape)} does not match "
@@ -61,5 +64,6 @@ def train_state_from_numpy(tree, cfg: ArchConfig, device="cuda"):
 
 def decode_state_from_numpy(tree, device="cuda"):
     """The reference's decode state (numpy leaves) as the port's: KV
-    caches, SSM and xLSTM recurrent states, each leaf in its own dtype."""
+    caches, MLA's compressed caches (`kv_c`, `k_rope`), SSM and xLSTM
+    recurrent states, each leaf in its own dtype."""
     return _tree(tree, device)

@@ -65,9 +65,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # -- MLP ---------------------------------------------------------------------
 
+def init_mlp(reps: int, d_model: int, d_ff: int, kind: str, normal,
+             dtype: torch.dtype) -> Params:
+    """The reference's `init_mlp`, layer-stacked (leading `reps` axis):
+    `w_gate` only for SwiGLU; `normal(shape, scale, dtype)` draws."""
+    p: Params = {}
+    if kind == "swiglu":
+        p["w_gate"] = normal((reps, d_model, d_ff), 0.02, dtype)
+    p["w_up"] = normal((reps, d_model, d_ff), 0.02, dtype)
+    p["w_down"] = normal((reps, d_ff, d_model), 0.02, dtype)
+    return p
+
+
 def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """SwiGLU MLP (the GELU form of the reference is a later slice)."""
-    h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    """SwiGLU MLP, or the GELU form where `p` has no "w_gate".  GELU is the
+    tanh approximation: `jax.nn.gelu`'s default, which the reference
+    calls."""
+    if "w_gate" in p:
+        h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    else:
+        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
     return linear(h, p["w_down"])
 
 

@@ -1,18 +1,20 @@
-"""Model assembly (the port of `repro.models.transformer`: dense GQA,
-hybrid attention + SSM, and xLSTM blocks).
+"""Model assembly (the port of `repro.models.transformer`).
 
 Layers are described by (mixer, ffn) descriptors, run-length encoded into
 groups whose params carry a leading `reps` axis, exactly as in the reference,
 so a param tree converts leaf for leaf.  A Python loop over the layers of a
 group stands in for `lax.scan`, and a checkpoint around each layer for
-`jax.checkpoint` of its body under remat.  The port runs the ("attn", "mlp"),
-("hybrid", "mlp"), ("mlstm", "none") and ("slstm", "none") descriptors,
-with full or sliding-window attention; the other mixers and FFNs raise
-`NotImplementedError`.
+`jax.checkpoint` of its body under remat.
+
+Mixers: attn (GQA, full or sliding-window), mla, ssm (Mamba-style), hybrid
+(parallel attn + SSM heads), mlstm, slstm.  FFNs: mlp (SwiGLU or GELU), moe
+(capacity dispatch), none.  Inputs: tokens, or embeddings (B, S, d_model)
+from a modality front-end (audio, vision), as the reference takes them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -22,16 +24,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .flags import ModelFlags, flags, get_flags
-from .layers import embed, mlp, rmsnorm, unembed
+from .layers import embed, init_mlp, mlp, rmsnorm, unembed
 
 Params = Dict
-
-_PORTED = (("attn", "mlp"), ("hybrid", "mlp"), ("mlstm", "none"),
-           ("slstm", "none"))
-
 
 # -- static layer plan -------------------------------------------------------
 
@@ -66,30 +65,15 @@ def layer_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, str], int]]:
     return groups
 
 
-def _ported_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, str], int]]:
-    groups = layer_groups(cfg)
-    for desc, _ in groups:
-        if desc not in _PORTED:
-            raise NotImplementedError(
-                f"layer {desc} of {cfg.name} is not ported yet; the port "
-                f"runs {_PORTED} blocks")
-    attends = any(mixer in ("attn", "hybrid") for (mixer, _), _ in groups)
-    mlps = any(ffn == "mlp" for (_, ffn), _ in groups)
-    if (attends and cfg.attention not in ("full", "swa")) or \
-            (mlps and cfg.mlp_kind != "swiglu") or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name} (attention={cfg.attention!r}, mlp={cfg.mlp_kind!r}, "
-            f"frontend={cfg.frontend!r}) is not ported yet; the port runs "
-            f"full or sliding-window GQA attention, a SwiGLU MLP and token "
-            f"inputs")
-    return groups
-
-
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 # -- init --------------------------------------------------------------------
+
+# values of the largest leaf `init_params` draws in f32 at once
+_DRAW_VALUES = 2 ** 28
+
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
@@ -98,16 +82,36 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     the FFN's only where the block has an FFN; normal 0.02 for projections,
     1.0 for the embedding and the SSM's `w_dt`, zero biases, unit norms;
     `ssm.py::init_ssm`: `a_log = log(1..N)`, unit `d_skip`, those three
-    leaves in f32; `xlstm.py`: `w_if` in f32, `r_gates` at 0.01).  The
-    numbers differ from `jax.random`'s; parity tests convert the
-    reference's own weights with `convert.params_from_numpy` instead."""
+    leaves in f32; `xlstm.py`: `w_if` in f32, `r_gates` at 0.01; `moe.py`:
+    the router in f32).  The numbers differ from `jax.random`'s; parity
+    tests convert the reference's own weights with
+    `convert.params_from_numpy` instead.
+
+    Each leaf is drawn in f32 and cast, one leaf at a time; a leaf of more
+    than 2^28 values is drawn in slices along its first axis (a layer at a
+    time for a stack of expert weights), so no f32 copy of the whole leaf
+    is held.  On `device="meta"` the leaves are shapes only
+    (`weight_bytes`)."""
     dtype = torch_dtype(cfg)
-    if generator is None:
+    meta = torch.device(device).type == "meta"
+    if generator is None and not meta:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    def normal(shape, scale, out_dtype=dtype):
+    def draw(shape, scale, out_dtype):
         t = torch.randn(shape, generator=generator, device=generator.device)
         return (t * scale).to(device=device, dtype=out_dtype)
+
+    def normal(shape, scale, out_dtype=dtype):
+        if meta:
+            return torch.empty(shape, dtype=out_dtype, device=device)
+        if math.prod(shape) <= _DRAW_VALUES:
+            return draw(shape, scale, out_dtype)
+        out = torch.empty(shape, dtype=out_dtype, device=device)
+        step = max(1, _DRAW_VALUES // math.prod(shape[1:]))
+        for i in range(0, shape[0], step):
+            n = min(step, shape[0] - i)
+            out[i:i + n] = draw((n,) + tuple(shape[1:]), scale, out_dtype)
+        return out
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -118,7 +122,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     params: Params = {"embed": {"table": normal((cfg.vocab_size, d), 1.0)}}
     groups = []
-    for (mixer, ffn), reps in _ported_groups(cfg):
+    for (mixer, ffn), reps in layer_groups(cfg):
         block = {"ln1": ones((reps, d))}
         if mixer in ("attn", "hybrid"):
             attn = {"wq": normal((reps, d, h * hd), 0.02),
@@ -130,7 +134,10 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                             bk=zeros((reps, kv * hd)),
                             bv=zeros((reps, kv * hd)))
             block["attn"] = attn
-        if mixer == "hybrid":
+        elif mixer == "mla":
+            block["attn"] = attn_mod.init_mla(cfg, reps, normal, dtype,
+                                              device)
+        if mixer in ("ssm", "hybrid"):
             block["ssm"] = ssm_mod.init_ssm(cfg, reps, normal, dtype, device)
         elif mixer == "mlstm":
             block["mlstm"] = xlstm_mod.init_mlstm(cfg, reps, normal, dtype,
@@ -140,15 +147,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                                                   device)
         if ffn != "none":
             block["ln2"] = ones((reps, d))
-            block["ffn"] = {"w_gate": normal((reps, d, cfg.d_ff), 0.02),
-                            "w_up": normal((reps, d, cfg.d_ff), 0.02),
-                            "w_down": normal((reps, cfg.d_ff, d), 0.02)}
+            if ffn == "moe":
+                block["ffn"] = moe_mod.init_moe(cfg, reps, normal, dtype,
+                                                device)
+            else:
+                block["ffn"] = init_mlp(reps, d, cfg.d_ff, cfg.mlp_kind,
+                                        normal, dtype)
         groups.append(block)
     params["groups"] = groups
     params["final_norm"] = ones((d,))
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab_size), 0.02)
     return params
+
+
+def weight_bytes(cfg: ArchConfig) -> int:
+    """Bytes of `init_params(cfg)`'s leaves, counted on shapes alone."""
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(init_params(cfg, device="meta")))
 
 
 def _layer(tree, i: int):
@@ -186,6 +202,10 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
         return xlstm_mod.mlstm_forward(p["mlstm"], h, cfg)
     if mixer == "slstm":
         return xlstm_mod.slstm_forward(p["slstm"], h, cfg)
+    if mixer == "ssm":
+        return ssm_mod.ssm_forward(p["ssm"], h, cfg)
+    if mixer == "mla":
+        return attn_mod.mla_forward(p["attn"], h, cfg, positions, chunk)
     y = attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
     if mixer == "hybrid":
         y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], h, cfg))
@@ -201,17 +221,24 @@ REMATS = ("none", "group", "full", "group_save_moe")
 
 def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
            cfg: ArchConfig, positions: torch.Tensor,
-           chunk: int) -> torch.Tensor:
-    """One full-sequence layer."""
+           chunk: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One full-sequence layer.  Returns (x, aux_loss), aux_loss None
+    unless the FFN is a MoE."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + _mixer(p, h, mixer, cfg, positions, chunk)
+    aux = None
     if ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(h, p["ffn"])
-    return x
+        if ffn == "moe":
+            y, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
+        else:
+            y = mlp(h, p["ffn"])
+        x = x + y
+    return x, aux
 
 
-def _flagged_block(model_flags: ModelFlags, *args) -> torch.Tensor:
+def _flagged_block(model_flags: ModelFlags,
+                   *args) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     # the recomputation in the backward runs under the flags of the first
     # pass, whatever is set when the backward runs: the same path, kernels
     # and all
@@ -219,32 +246,40 @@ def _flagged_block(model_flags: ModelFlags, *args) -> torch.Tensor:
         return _block(*args)
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            chunk: int = 512,
+def forward(params: Params, cfg: ArchConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None, chunk: int = 512,
             remat: str = "group") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill forward. tokens (B, S) int.  Returns (logits (B,S,V)
-    f32, aux_loss = 0).  Embedding front-ends (audio, vision) are a later
-    slice.
+    """Train/prefill forward.  tokens (B, S) int, or embeds (B, S, d_model)
+    from a modality front-end, cast to the config's dtype in place of the
+    embedding.  Returns (logits (B,S,V) f32, aux_loss): the MoE layers'
+    load-balancing losses summed over the layers, 0 without MoE.
 
     `remat` is the reference's policy: "group" and "full" checkpoint each
     layer (`torch.utils.checkpoint`, not reentrant), so the backward runs
     the layer's forward again, kernels included; "none" keeps every
     activation.  It applies only where autograd records (grad mode on and
     a param that requires grad); serving and prefill run the layers as
-    they are.  "group_save_moe" waits for the MoE port."""
+    they are.  "group_save_moe" (save each MoE layer's output, recompute
+    the rest) waits for MoE training, a later slice of the port."""
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} not in {REMATS}")
     if remat == "group_save_moe":
         raise NotImplementedError(
-            "remat='group_save_moe' saves the MoE output, and MoE is not "
-            "ported yet")
-    x = embed(tokens, params["embed"], torch_dtype(cfg))
+            "remat='group_save_moe' saves each MoE layer's output for the "
+            "backward; MoE training is a later slice of the port")
+    dtype = torch_dtype(cfg)
+    if embeds is not None:
+        x = embeds.to(dtype)
+    else:
+        x = embed(tokens, params["embed"], dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     records = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
     recompute = remat != "none" and records
     model_flags = get_flags()
-    for ((mixer, ffn), reps), stacked in zip(_ported_groups(cfg),
+    for ((mixer, ffn), reps), stacked in zip(layer_groups(cfg),
                                              params["groups"]):
         # under autograd one unbind a leaf, whose backward is one stack;
         # otherwise each layer's views are taken as the layer runs, so the
@@ -255,11 +290,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             args = (layer, x, mixer, ffn, cfg, positions, chunk)
             if recompute:
                 # the blocks draw no random numbers: no RNG state to keep
-                x = checkpoint(_flagged_block, model_flags, *args,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, layer_aux = checkpoint(
+                    _flagged_block, model_flags, *args, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
-                x = _block(*args)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, layer_aux = _block(*args)
+            if ffn == "moe":
+                aux = aux + layer_aux
     return _logits(params, x, cfg), aux
 
 
@@ -269,10 +306,15 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict,
             chunk: int = 512, remat: str = "group",
             aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL over `log_softmax(logits)` plus `aux_weight *
-    aux`, as the reference's `loss_fn`.  batch: {"tokens", "labels"} (B, S)
-    int; `remat` as `forward`'s."""
-    tokens = torch.as_tensor(batch["tokens"])
-    logits, aux = forward(params, cfg, tokens, chunk=chunk, remat=remat)
+    aux`, as the reference's `loss_fn`.  batch: {"tokens" (B, S) int or
+    "embeds" (B, S, d_model), "labels" (B, S) int}; `remat` as
+    `forward`'s."""
+    tokens, embeds = batch.get("tokens"), batch.get("embeds")
+    logits, aux = forward(
+        params, cfg,
+        tokens=None if tokens is None else torch.as_tensor(tokens),
+        embeds=None if embeds is None else torch.as_tensor(embeds),
+        chunk=chunk, remat=remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     logp = torch.log_softmax(logits, dim=-1)
     # -logp at each label (the reference's take_along_axis), by nll_loss:
@@ -289,21 +331,26 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> Params:
     """Per-group layer-stacked decode state: KV caches {"kv": {"k", "v"}},
     each (reps, B, S, Kv, hd) with S = max_len (a ring of min(max_len,
-    window) under SWA); for hybrid blocks also the SSM state {"ssm":
-    {"h"}}, (reps, B, din, N) f32; for xLSTM blocks only their recurrent
-    state, {"mlstm": {"c", "n", "m"}} or {"slstm": {"c", "n", "h", "m"}},
-    f32, with `m` at -1e30."""
+    window) under SWA); MLA's compressed cache {"kv": {"kv_c" (reps, B, S,
+    kv_lora), "k_rope" (reps, B, S, qk_rope)}}; for SSM and hybrid blocks
+    the SSM state {"ssm": {"h"}}, (reps, B, din, N) f32; for xLSTM blocks
+    only their recurrent state, {"mlstm": {"c", "n", "m"}} or {"slstm":
+    {"c", "n", "h", "m"}}, f32, with `m` at -1e30."""
     dtype = torch_dtype(cfg)
     groups = []
-    for (mixer, _), reps in _ported_groups(cfg):
-        if mixer == "mlstm":
-            one = {"mlstm": xlstm_mod.init_mlstm_state(cfg, batch, device)}
+    for (mixer, _), reps in layer_groups(cfg):
+        one = {}
+        if mixer in ("attn", "hybrid"):
+            one["kv"] = attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
+                                                 device)
+        elif mixer == "mla":
+            one["kv"] = attn_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                                device)
+        elif mixer == "mlstm":
+            one["mlstm"] = xlstm_mod.init_mlstm_state(cfg, batch, device)
         elif mixer == "slstm":
-            one = {"slstm": xlstm_mod.init_slstm_state(cfg, batch, device)}
-        else:
-            one = {"kv": attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
-                                                  device)}
-        if mixer == "hybrid":
+            one["slstm"] = xlstm_mod.init_slstm_state(cfg, batch, device)
+        if mixer in ("ssm", "hybrid"):
             one["ssm"] = ssm_mod.init_ssm_state(cfg, batch, device)
         groups.append({kind: {name: buf.expand(reps, *buf.shape).contiguous()
                               for name, buf in leaves.items()}
@@ -313,17 +360,24 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 
 def decode_step(params: Params, state: Params, cfg: ArchConfig,
                 token: torch.Tensor, pos) -> Tuple[torch.Tensor, Params]:
-    """One decode step. token (B,) int; pos (B,) int, one position per slot
-    (a scalar is broadcast to every slot).
+    """One decode step. token (B,) int; pos (B,) int, one position per slot,
+    or a scalar shared by every slot.
+
+    The MoE layers route as the reference's two decode forms do: with a
+    (B,) position each slot alone (the per-slot serve step vmaps a one-slot
+    decode, so T = 1 and nothing is dropped); with a scalar position the B
+    tokens together, against a capacity of B tokens (the reference's
+    `decode_step`, which can drop).
 
     Returns (logits (B, V) f32, state); the caches and recurrent states in
     `state` are updated in place."""
     dtype = torch_dtype(cfg)
-    pos = torch.as_tensor(pos, device=token.device).long().expand(
-        token.shape[0])
+    pos = torch.as_tensor(pos, device=token.device).long()
+    per_slot = pos.ndim > 0
+    pos = pos.expand(token.shape[0])
     x = embed(token, params["embed"], dtype)
     for ((mixer, ffn), reps), stacked_p, stack in zip(
-            _ported_groups(cfg), params["groups"], state["groups"]):
+            layer_groups(cfg), params["groups"], state["groups"]):
         for i in range(reps):
             p = _layer(stacked_p, i)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -333,16 +387,26 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
                     xlstm_mod.slstm_decode
                 y, new = step(p[mixer], h, _layer(stack[mixer], i), cfg)
                 _write_layer(stack[mixer], new, i)
-            else:
+            elif mixer == "mla":
+                y = attn_mod.mla_decode(p["attn"], h, stack["kv"], pos, cfg,
+                                        layer_idx=i)
+            elif mixer in ("attn", "hybrid"):
                 y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
                                          layer_idx=i)
-            if mixer == "hybrid":
+            if mixer in ("ssm", "hybrid"):
                 ys, new = ssm_mod.ssm_decode(p["ssm"], h,
                                              _layer(stack["ssm"], i), cfg)
                 _write_layer(stack["ssm"], new, i)
-                y = 0.5 * (y + ys)
+                y = ys if mixer == "ssm" else 0.5 * (y + ys)
             x = x + y
-            if ffn != "none":
+            if ffn == "moe":
+                h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+                if per_slot:
+                    x = x + moe_mod.moe_forward_slots(p["ffn"], h, cfg)
+                else:
+                    x = x + moe_mod.moe_forward(p["ffn"], h[:, None],
+                                                cfg)[0][:, 0]
+            elif ffn == "mlp":
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
                 x = x + mlp(h, p["ffn"])
     return _logits(params, x, cfg), state

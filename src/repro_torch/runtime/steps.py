@@ -138,10 +138,17 @@ def make_serve_step(cfg: ArchConfig):
 
 def make_prefill_step(cfg: ArchConfig, chunk: int = 512, device="cuda"):
     """Full-sequence forward for prefill (logits only).  The batch's
-    `tokens` (B, S) are moved to `device`."""
+    `tokens` (B, S), or its `embeds` (B, S, d_model) from a modality
+    front-end (bf16 in the reference's input specs), are moved to
+    `device`."""
     def prefill_step(params, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=device)
-        logits, _ = forward(params, cfg, tokens, chunk=chunk)
+        tokens, embeds = batch.get("tokens"), batch.get("embeds")
+        logits, _ = forward(
+            params, cfg,
+            tokens=None if tokens is None else torch.as_tensor(
+                tokens, device=device),
+            embeds=None if embeds is None else torch.as_tensor(
+                embeds, device=device), chunk=chunk)
         return logits
 
     return prefill_step

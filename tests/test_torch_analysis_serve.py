@@ -8,11 +8,14 @@ ephemeral port must answer each request with the Diagnosis the service
 gives in-process, byte for byte (as `tests/test_serve_net.py` holds the
 reference), and each package's client must talk to the other's server.
 The pool's restart backoff is held to the reference's on a table of
-histories, and one two-worker pool serves a round trip and drains.  Every
-socket has a timeout, and no test waits on a wall clock.
+histories, and one two-worker pool serves a round trip and drains, forked
+from a fresh interpreter.  Every socket has a timeout, and no test waits
+on a wall clock.
 """
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -230,26 +233,60 @@ def test_respawn_delay_equals_reference():
                     (history, now, kw)
 
 
+# Forks the pool from an interpreter that has imported no JAX and run no
+# torch op: forked from the test process, which has (JAX is multithreaded),
+# a worker can deadlock.  It prints what the test checks as one JSON line.
+POOL_ROUND_TRIP = """
+import json, sys
+import repro_torch.launch.analysis_server as port_server
+import repro_torch.serve as port_serve
+from repro_torch.core import AnalyzeRequest
+timeout, backend = float(sys.argv[1]), sys.argv[2]
+text = port_server.demo_hlo(0)
+pool = port_serve.LeoWorkerPool(workers=2, port=0, slots=2,
+                                control_port=None).start()
+try:
+    ready = pool.wait_ready(timeout)
+    with port_serve.LeoClient(port=pool.port, timeout=timeout,
+                              max_retries=3) as client:
+        reqs = [AnalyzeRequest(hlo_text=text, backend=b)
+                for b in ("tpu_v5e", backend, "tpu_v5e", backend)]
+        out = client.diagnose_batch(reqs, max_connections=2)
+finally:
+    drained = pool.drain(timeout)
+print(json.dumps({
+    "ready": ready, "drained": drained,
+    "jax_imported": "jax" in sys.modules,
+    "backends": [d.backend for d in out],
+    "diagnoses": [d.to_json() for d in out],
+    "drain_events": [[kind, idx] for kind, idx, _ in pool.drain_events],
+    "exit_codes": [rec.exit_code for rec in pool._records.values()]}))
+"""
+
+
 @pytest.mark.skipif(not hasattr(os, "fork"),
                     reason="LeoWorkerPool needs os.fork")
 def test_two_worker_pool_round_trip_drains():
     """Bind once, fork two workers, serve a pipelined batch, then drain
-    rolling: each worker told in turn and each exiting 0."""
+    rolling: each worker told in turn and each exiting 0.  The pool runs
+    in a fresh interpreter (POOL_ROUND_TRIP) with a time limit of its
+    own."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run(
+        [sys.executable, "-c", POOL_ROUND_TRIP, str(TIMEOUT), BACKEND],
+        capture_output=True, text=True, timeout=4 * TIMEOUT, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["ready"] and got["drained"] is True
+    assert got["jax_imported"] is False
+    assert got["backends"] == ["tpu_v5e", BACKEND] * 2
+    assert got["diagnoses"][0] == got["diagnoses"][2]
     text = traces(port_server)["demo"]
-    pool = port_serve.LeoWorkerPool(workers=2, port=0, slots=2,
-                                    control_port=None).start()
-    try:
-        assert pool.wait_ready(TIMEOUT)
-        with port_serve.LeoClient(port=pool.port, timeout=TIMEOUT,
-                                  max_retries=3) as client:
-            reqs = [port.AnalyzeRequest(hlo_text=text, backend=b)
-                    for b in ("tpu_v5e", BACKEND, "tpu_v5e", BACKEND)]
-            out = client.diagnose_batch(reqs, max_connections=2)
-    finally:
-        assert pool.drain(TIMEOUT) is True
-    assert [d.backend for d in out] == ["tpu_v5e", BACKEND] * 2
-    assert out[0].to_json() == out[2].to_json()
-    assert out[1].to_json() == port.LeoService().submit(reqs[1]).to_json()
-    assert [(kind, idx) for kind, idx, _ in pool.drain_events] == \
-        [("sigterm", 0), ("exit", 0), ("sigterm", 1), ("exit", 1)]
-    assert all(rec.exit_code == 0 for rec in pool._records.values())
+    assert got["diagnoses"][1] == port.LeoService().submit(
+        port.AnalyzeRequest(hlo_text=text, backend=BACKEND)).to_json()
+    assert got["drain_events"] == \
+        [["sigterm", 0], ["exit", 0], ["sigterm", 1], ["exit", 1]]
+    assert got["exit_codes"] and all(c == 0 for c in got["exit_codes"])

@@ -524,6 +524,69 @@ def test_xlstm_prefill_kernel_path_matches_plain_path():
     _close(logits, plain, (1e-4, 1e-4))
 
 
+@pytest.mark.parametrize("arch,k1,k2", [("musicgen-medium", 2, 5),
+                                        ("internvl2-2b", 2, 5),
+                                        ("phi3.5-moe-42b-a6.6b", 2, 5),
+                                        ("deepseek-v2-236b", 0, 9)])
+def test_slice_prefill_kernel_path_matches_plain_path(arch, k1, k2):
+    """The MLA, MoE, GELU and embedding configurations at smoke size in
+    f32 on the card: K1 once an attention layer (none under MLA), K2 at
+    every norm (MLA's `q_norm` and `kv_norm` too), against the
+    forced-plain path.  The MoE layers route the same tokens on both paths
+    here: f32 norms one rounding apart move no smoke router's choice."""
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    if cfg.frontend != "none":
+        batch = {"embeds": (0.02 * torch.randn((2, 128, cfg.d_model),
+                                               generator=gen, device=dev)
+                            ).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                         generator=gen, device=dev)}
+    ops.reset_launch_counts()
+    logits, aux = tt.forward(params, cfg, **batch)
+    assert ops.launch_counts() == {"flash_attention": k1,
+                                   "rmsnorm_pipelined": k2,
+                                   "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "mlstm_chunkwise": 0, "slstm_scan": 0}
+    with flags(force_plain=True):
+        plain, plain_aux = tt.forward(params, cfg, **batch)
+    _close(logits, plain, (1e-4, 1e-4))
+    _close(aux, plain_aux, (1e-5, 1e-5))
+
+
+def test_moe_combine_is_deterministic_on_the_card():
+    """deepseek-v2's routing (160 experts, top-6, two shared) at a narrow
+    width in bf16: the same input gives the same bits, call after call, in
+    both routing forms.  The combine sums each token's six contributions in
+    a fixed order; an atomic scatter-add of bf16 rows would not."""
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), d_model=256,
+                              moe_d_ff=128)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def normal(shape, scale, dtype):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    p = {k: v[0] if isinstance(v, torch.Tensor) else
+         {kk: vv[0] for kk, vv in v.items()}
+         for k, v in moe.init_moe(cfg, 1, normal, torch.bfloat16,
+                                  dev).items()}
+    x = torch.randn((4, 512, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    first, aux = moe.moe_forward(p, x, cfg)
+    slots = moe.moe_forward_slots(p, x[:, 0], cfg)
+    for _ in range(5):
+        again, again_aux = moe.moe_forward(p, x, cfg)
+        assert torch.equal(again, first) and torch.equal(again_aux, aux)
+        assert torch.equal(moe.moe_forward_slots(p, x[:, 0], cfg), slots)
+
+
 # -- gradients through the kernels (kernels/autograd.py) ----------------------
 
 def _tracked(seed, shapes, dtype, dev):

@@ -185,8 +185,23 @@ def _leaves(tree):
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "musicgen-medium",
                                   "phi3.5-moe-42b-a6.6b"])
 def test_later_architectures_raise(arch):
+    """The MLA, MoE and GELU configurations, which raised before the port
+    had those layers, now build: params and decode state leaf for leaf as
+    the reference's (`tests/test_torch_archs.py` holds their numbers)."""
+    jcfg = j_smoke(j_get_config(arch))
     cfg = smoke_config(get_config(arch))
-    with pytest.raises(NotImplementedError):
-        tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        tt.init_decode_state(cfg, 1, 8, "cpu")
+    for build, j_build in (
+            (lambda: tt.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"),
+             lambda: jt.init_params(jax.random.PRNGKey(0), jcfg)),
+            (lambda: tt.init_decode_state(cfg, 1, 8, "cpu"),
+             lambda: jt.init_decode_state(jcfg, 1, 8))):
+        tree = build()
+        j_flat = jax.tree_util.tree_flatten_with_path(
+            jax.eval_shape(j_build))[0]
+        assert len(j_flat) == len(list(_leaves(tree)))
+        for path, leaf in j_flat:
+            t = tree
+            for key in path:
+                t = t[getattr(key, "key", getattr(key, "idx", None))]
+            assert tuple(t.shape) == tuple(leaf.shape), path
