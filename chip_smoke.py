@@ -11,8 +11,9 @@ error:
      instantiation of flash attention's bf16 tensor-core body, of the
      two RMSNorm kernels (by dtype, chunks a lane and, for the baseline,
      16-byte or value-by-value access), of the sLSTM scan (by dtype, batch
-     rows a tile and gate columns a lane) and of the chunkwise mLSTM's two
-     passes must report 0 spill bytes, and their registers are printed;
+     rows a tile and gate columns a lane), of the chunkwise mLSTM's two
+     passes and of the selective scan's fused entry (by dtype and N) must
+     report 0 spill bytes, and their registers are printed;
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (qwen2-0.5b and hymba-1.5b; flash attention also at
      h2o-danube-3-4b's head dim 120, timed in bf16, and at the edges of its
@@ -20,7 +21,12 @@ error:
      dtype; both RMSNorm kernels also in f32 at
      h2o-danube-3-4b's D 3840 and glm4-9b's 4096, the rows their wrappers
      refused before), with its time, the plain version's, its bound and a
-     library call's as a yardstick;
+     library call's as a yardstick; the selective scan's fused entry
+     (`ssm_scan_fused`: discretization and scan in one kernel) against
+     `ssm_scan_plain` on the terms its plain version discretizes, at
+     hymba-1.5b's shape with xin bf16 (a strided view, as the model hands
+     it) and f32, its bound the larger of its bytes and its exponentials
+     over the special-function units (`sfu_rate`);
   4. prefill at full qwen2-0.5b width (B 4 x S 1024) through
      `make_prefill_step`, kernel path against forced-plain path, with the
      launch counts of each kernel (every flash-attention launch on the
@@ -120,7 +126,17 @@ error:
      (2e-5 of the largest logit, the reference's `wkv_b` layout outside);
      LEO on phi3.5-moe's loss (4 layers) on `nvidia_h100_sxm`, its MoE
      scatter-adds MEMORY_STORE.  Phase 3 also times K1 and K2 at these
-     shapes.
+     shapes;
+ 19. hymba-1.5b at full width (B 2 x S 2048) under the SSM's default form
+     (a/bx materialised, K4's `ssm_scan`) and its fused form
+     (`ssm_fused=True, ssm_pallas=True`, K4's `ssm_scan_fused`): each bf16
+     prefill with exact launch counts, its profiled busy ms and peak
+     memory; in f32 the fused kernel path against the forced-plain path
+     (phase 6's rule), the fused entry fed `bsel` one step late outside
+     it, and the fused kernel path against the default one; then each
+     form's loss at FUSED_LEO_LAYERS layers timed, captured and diagnosed
+     on `nvidia_h100_sxm`, the four cases of the LEO loop held (the fused
+     form's memory term lower, FLOPs within 1%).
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -435,6 +451,108 @@ def check_ssm_scan(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
     return row
 
 
+# the special-function unit's rate on Hopper, exponentials a clock on one SM
+# (CUDA C++ Programming Guide, throughput of native arithmetic instructions,
+# compute capability 9.0: base-2 exponential 16 results a clock a
+# multiprocessor); the card's SM count and maximum SM clock are read
+SFU_PER_CLOCK = 16
+
+
+def sfu_rate(torch):
+    """Exponentials a second on this card: SMs x SFU_PER_CLOCK x the
+    maximum SM clock `nvidia-smi` reads."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sms": sms, "max_sm_mhz": mhz,
+            "per_s": sms * SFU_PER_CLOCK * mhz * 1e6}
+
+
+def fused_scan_inputs(torch, dt_name: str, b, s, din, n, strided=False):
+    """xin (a view `xz[..., :din]` of a (B, S, 2 din) tensor when `strided`,
+    as the model hands it), w_dt, a_log = log(1..N), bsel and csel, at the
+    scales the model's init gives them (w_dt of unit scale; xin and the
+    selections of order one)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xz = torch.randn((b, s, 2 * din if strided else din), generator=gen,
+                     device="cuda").to(getattr(torch, dt_name))
+    w_dt = torch.randn((din,), generator=gen, device="cuda")
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device="cuda")).expand(din, n).contiguous()
+    bsel = 0.5 * torch.randn((b, s, n), generator=gen, device="cuda")
+    csel = 0.5 * torch.randn((b, s, n), generator=gen, device="cuda")
+    return xz[..., :din], w_dt, a_log, bsel, csel
+
+
+def check_ssm_scan_fused(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
+                         n=16, strided=False, timed=False, rate=None):
+    """K4's fused entry against `ssm_scan_plain(*discretize(xin, ...),
+    csel)`, the exact sequential loop on the terms the plain version
+    discretizes, held to the existing entry's 1e-4 absolute + 1e-4
+    relative (the same f32 functions, the recurrence in one multiply-add,
+    the readout summed in another order).  Timed: the kernel in a CUDA
+    graph and eagerly, its plain version (`ssm_fused_plain`, the chunked
+    form), the oracle, and its bound: the larger of the bytes (xin as
+    read, w_dt, a_log, bsel, csel, y) over 3.35 TB/s and the
+    exponentials (one for each a, and softplus's exp and log1p once a
+    channel and step) over `rate`."""
+    from repro_torch.kernels.ssm_scan import discretize
+
+    xin, w_dt, a_log, bsel, csel = fused_scan_inputs(torch, dt_name, b, s,
+                                                     din, n, strided)
+    out = ops.ssm_scan_fused(xin, w_dt, a_log, bsel, csel)
+    a, bx = discretize(xin, w_dt, a_log, bsel)
+    oracle = lambda: ops.ssm_scan_plain(a, bx, csel)  # noqa: E731
+    plain = oracle()
+    torch.cuda.synchronize()
+    atol = rtol = 1e-4
+    diff = (out - plain).abs()
+    err = diff.max().item()
+    within = (diff - rtol * plain.abs() - atol).max().item() <= 0
+    tol = f"{atol:g} + {rtol:g}*|plain|"
+    case = (f"ssm_scan_fused {dt_name} B{b} S{s} din{din} N{n}"
+            + (" xin strided (row 2 din)" if strided else ""))
+    require(out.dtype == torch.float32 and tuple(out.shape) == (b, s, din),
+            f"{case}: out {out.dtype} {tuple(out.shape)}")
+    require(torch.isfinite(out).all().item(), f"{case}: non-finite")
+    require(within, f"{case}: max abs err {err:.3e}, beyond tol {tol}")
+    row = {"case": case, "max_abs_err": err, "tol": tol}
+    del a, bx
+    if timed:
+        itemsize = xin.element_size()
+        nbytes = (b * s * din * itemsize + w_dt.nbytes + a_log.nbytes
+                  + bsel.nbytes + csel.nbytes + out.nbytes)
+        exps = b * s * din * n + 2 * b * s * din
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = exps / rate["per_s"] * 1e3
+        row.update(bytes=nbytes, exponentials=exps, bytes_ms=t_bytes,
+                   sfu_ms=t_ops, sfu=rate)
+        row["bound_ms"], row["bound_by"] = (t_ops, "operations") \
+            if t_ops > t_bytes else (t_bytes, "bytes")
+        kernel = lambda: ops.ssm_scan_fused(  # noqa: E731
+            xin, w_dt, a_log, bsel, csel)
+        row["ms"] = time_ms(torch, kernel)
+        row["call_ms"] = call_ms(torch, kernel)
+        row["plain_ms"] = call_ms(torch, lambda: ops.ssm_fused_plain(
+            xin, w_dt, a_log, bsel, csel), samples=3, reps=1)
+        # discretization passes and the sequential loop of S steps
+        row["oracle_ms"] = call_ms(torch, lambda: ops.ssm_scan_plain(
+            *discretize(xin, w_dt, a_log, bsel), csel), samples=3, reps=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
+          + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
+             f"plain_ms {row['plain_ms']:.3f} (chunked form; sequential "
+             f"oracle {row['oracle_ms']:.2f}), library_ms none, bound_ms "
+             f"{row['bound_ms']:.4f} ({row['bound_by']}: bytes "
+             f"{row['bytes_ms']:.4f}, {row['exponentials']:.3e} "
+             f"exponentials {row['sfu_ms']:.4f} at {rate['sms']} SMs x "
+             f"{SFU_PER_CLOCK} x {rate['max_sm_mhz']:g} MHz)"
+             if timed else ""))
+    return row
+
+
 # -- phases 4 and 5 -----------------------------------------------------------
 
 def run_prefill(torch, ops, cfg, params, flags, make_prefill_step):
@@ -620,7 +738,7 @@ def run_hybrid_prefill(torch, ops, cfg, params, flags, make_prefill_step,
     expect = {"flash_attention": cfg.n_layers,
               "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
               "rmsnorm_baseline": 0, "ssm_scan": cfg.n_layers,
-              "mlstm_chunkwise": 0, "slstm_scan": 0}
+              "ssm_scan_fused": 0, "mlstm_chunkwise": 0, "slstm_scan": 0}
     require(counts == expect, f"hybrid prefill: launches {counts}, "
             f"expected {expect}")
     require(bodies == {"tensor_core": cfg.n_layers, "cuda_core": 0},
@@ -1474,7 +1592,7 @@ def run_xlstm_prefill(torch, ops, cfg, params, flags, make_prefill_step,
             "xlstm prefill logits not finite")
     kinds = list(cfg.block_kinds)
     expect = {"flash_attention": 0, "rmsnorm_pipelined": norms,
-              "rmsnorm_baseline": 0, "ssm_scan": 0,
+              "rmsnorm_baseline": 0, "ssm_scan": 0, "ssm_scan_fused": 0,
               "mlstm_chunkwise": kinds.count("mlstm"),
               "slstm_scan": kinds.count("slstm")}
     require(counts == expect, f"xlstm prefill: launches {counts}, expected "
@@ -2441,8 +2559,8 @@ def run_slice_prefill(torch, ops, cfg, params, flags, make_prefill_step,
             f"not finite")
     k1, k2 = SLICE_LAUNCHES[cfg.name]
     expect = {"flash_attention": k1, "rmsnorm_pipelined": k2,
-              "rmsnorm_baseline": 0, "ssm_scan": 0, "mlstm_chunkwise": 0,
-              "slstm_scan": 0}
+              "rmsnorm_baseline": 0, "ssm_scan": 0, "ssm_scan_fused": 0,
+              "mlstm_chunkwise": 0, "slstm_scan": 0}
     require(counts == expect, f"phase 18 {cfg.name}: launches {counts}, "
             f"expected {expect}")
     require(bodies == {"tensor_core": k1, "cuda_core": 0},
@@ -2831,6 +2949,236 @@ def run_slice(torch, np, ops, core, flags, get_config, init_params, forward,
     return out
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+# Phase 19's captures: hymba-1.5b at full width with its depth cut to this
+# many layers (a layer records ~3,300 instructions at B 2 x S 2048, 16 chunks
+# of the scan; at 32 layers the two captures would take minutes)
+FUSED_LEO_LAYERS = 8
+SSM_FORMS = {"default": {}, "fused": {"ssm_fused": True, "ssm_pallas": True}}
+# the K4 entry each form launches, and the one it must not
+SSM_ENTRY = {"default": ("ssm_scan", "ssm_scan_fused"),
+             "fused": ("ssm_scan_fused", "ssm_scan")}
+
+
+def late_selection(torch, ssm_scan_fused):
+    """K4's fused entry fed `bsel` one step late (B_{t-1} in step t's bx),
+    a fault of the input timing: dt and bx's x come from the same xin
+    inside the kernel, so a late dt cannot be fed from outside."""
+    def late(xin, w_dt, a_log, bsel, csel, **kwargs):
+        shifted = torch.cat([torch.zeros_like(bsel[:, :1]), bsel[:, :-1]],
+                            dim=1)
+        return ssm_scan_fused(xin, w_dt, a_log, shifted, csel, **kwargs)
+    late.check = ssm_scan_fused.check
+    return late
+
+
+def run_fused_ssm(torch, ops, core, cfg, flags, make_prefill_step,
+                  init_params, loss_fn, ssm_module):
+    """hymba-1.5b at full width, B 2 x S 2048, under the SSM's default form
+    (a and bx materialised, K4's `ssm_scan`) and its fused form
+    (`ssm_fused=True, ssm_pallas=True`, K4's `ssm_scan_fused`, xin in, y
+    out).
+
+    * bf16, 32 layers: each form's prefill with exact launch counts (K1 32
+      and K2 65 in both; the form's K4 entry 32, the other 0), its
+      `torch.profiler` busy ms and its `max_memory_allocated`, also above
+      what was allocated before the call.
+    * f32, 32 layers: the fused kernel path against the forced-plain path
+      of the same form (phase 6's rule: 2e-3 of the largest logit, top-1 >=
+      0.99), the fused entry with `bsel` one step late outside that limit,
+      and the fused kernel path against the default kernel path by the
+      same rule.
+    * LEO, FUSED_LEO_LAYERS layers at full width, bf16: each form's
+      `loss_fn` timed on the card and captured, both diagnosed on
+      `nvidia_h100_sxm` and held to the four cases of `tests/
+      test_system.py::TestLeoGuidedLoop` (the fused form's memory term
+      below the default's, FLOPs within 1%); each scan region records
+      S/128 chunks a layer."""
+    b, s = 2, 2048
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prefill = make_prefill_step(cfg)
+    runs, logits16 = {}, {}
+    for name, kw in SSM_FORMS.items():
+        with flags(**kw):
+            prefill(params, {"tokens": tokens[:, :128]})  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            profile = profile_prefill(torch, prefill, params, tokens)
+        on, off = SSM_ENTRY[name]
+        expect = {"flash_attention": cfg.n_layers,
+                  "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
+                  "rmsnorm_baseline": 0, on: cfg.n_layers, off: 0,
+                  "mlstm_chunkwise": 0, "slstm_scan": 0}
+        require(counts == expect, f"phase 19 {name}: launches {counts}, "
+                f"expected {expect}")
+        require(tuple(logits.shape) == (b, s, cfg.vocab_size) and
+                torch.isfinite(logits).all().item(),
+                f"phase 19 {name}: logits {tuple(logits.shape)} or not "
+                f"finite")
+        logits16[name] = logits
+        # the prefill's own peak: above what was held before the call (the
+        # weights, and the other form's logits kept for the comparison)
+        runs[name] = {"seconds": seconds, "launches": counts,
+                      "peak_bytes": peak, "held_bytes": held,
+                      "prefill_peak_bytes": peak - held, "profile": profile}
+        print(f"  {name} form, bf16 prefill B{b} S{s}: {seconds:.3f} s, "
+              f"launches {counts}, peak {peak / 2**30:.3f} GiB, "
+              f"{(peak - held) / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} held before it")
+    bf16_gap = {
+        "max": (logits16["fused"] - logits16["default"]).abs().max().item(),
+        "scale": logits16["default"].abs().max().item(),
+        "top1": (logits16["fused"].argmax(-1) == logits16["default"].argmax(
+            -1)).float().mean().item()}
+    print(f"  bf16 fused against default (printed, not gated: bf16 drifts "
+          f"with random weights): max {bf16_gap['max']:.4f} of max|logit| "
+          f"{bf16_gap['scale']:.3f}, top-1 {bf16_gap['top1']:.5f}")
+    del params, logits16, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        0))
+    prefill32 = make_prefill_step(cfg32)
+    batch = {"tokens": tokens}
+    with flags(**SSM_FORMS["fused"]):
+        ops.reset_launch_counts()
+        fused32 = prefill32(params32, batch)
+        fused_counts = ops.launch_counts()
+        with flags(force_plain=True):
+            plain32 = prefill32(params32, batch)
+        real = ssm_module.ssm_scan_fused
+        ssm_module.ssm_scan_fused = late_selection(torch, real)
+        try:
+            late32 = prefill32(params32, batch)
+        finally:
+            ssm_module.ssm_scan_fused = real
+    default32 = prefill32(params32, batch)
+    torch.cuda.synchronize()
+    require(fused_counts["ssm_scan_fused"] == cfg.n_layers and
+            fused_counts["ssm_scan"] == 0,
+            f"phase 19 f32: launches {fused_counts}")
+    require(torch.isfinite(fused32).all().item(),
+            "phase 19 f32 fused logits not finite")
+    rel_tol = 2e-3
+
+    def against(x, ref):
+        diff = (x - ref).abs()
+        top1 = (x.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        return {"max": diff.max().item(), "top1": top1,
+                "scale": ref.abs().max().item()}
+
+    f32 = {"fused_vs_plain": against(fused32, plain32),
+           "late_vs_plain": against(late32, plain32),
+           "fused_vs_default": against(fused32, default32)}
+    for key, r in f32.items():
+        print(f"  f32 {key.replace('_', ' ')}: max {r['max']:.3e} of "
+              f"max|logit| {r['scale']:.3f} (tol {rel_tol:g} x), top-1 "
+              f"{r['top1']:.5f}")
+    for key in ("fused_vs_plain", "fused_vs_default"):
+        r = f32[key]
+        require(r["max"] <= rel_tol * r["scale"] and r["top1"] >= 0.99,
+                f"phase 19 f32 {key}: {r}")
+    r = f32["late_vs_plain"]
+    require(r["max"] > rel_tol * r["scale"],
+            f"phase 19: bsel one step late moves the f32 logits by "
+            f"{r['max']}, within the tolerance: the check cannot see it")
+    del params32, fused32, plain32, late32, default32
+    torch.cuda.empty_cache()
+
+    cfg_l = replace(cfg, n_layers=FUSED_LEO_LAYERS)
+    params_l = init_params(cfg_l, torch.Generator(device="cuda").manual_seed(
+        0))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    backend = core.get_backend("nvidia_h100_sxm")
+    diag = {}
+    for name, kw in SSM_FORMS.items():
+        with flags(**kw):
+            loss_fn(params_l, cfg_l, batch)  # warm-up
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = loss_fn(params_l, cfg_l, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            require(math.isfinite(loss.item()), f"phase 19 {name}: loss")
+            t0 = time.perf_counter()
+            module = core.capture(lambda p, bt: loss_fn(p, cfg_l, bt),
+                                  params_l, batch, name=f"hymba_{name}")
+            capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        an = core.analyze_module(module, backend)
+        analysis_s = time.perf_counter() - t0
+        roof = core.compute_roofline(module, backend.hw, chips=1, label=name)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            ctx = core.diagnostic_context("C+L(S)", "loss_fn", an)
+        scoped = [link for c in an.chains for link in c.links
+                  if link.op_name]
+        on = SSM_ENTRY[name][0]
+        mark = f"{core.FUSED_REGION_MARK}:{on}"
+        readouts = sum(1 for i in module.all_instructions()
+                       if mark in i.op_name and i.opcode == "bmm")
+        diag[name] = {
+            "layers": FUSED_LEO_LAYERS, "loss": loss.item(),
+            "instructions": sum(1 for _ in module.all_instructions()),
+            "kernel_regions": module.kernel_calls, "readouts": readouts,
+            "capture_s": capture_s, "analysis_s": analysis_s,
+            "estimated_step_s": an.estimated_step_seconds,
+            "measured_s": statistics.median(times),
+            "memory_s": roof.memory_s, "compute_s": roof.compute_s,
+            "hlo_flops": roof.hlo_flops,
+            "coverage": [an.coverage_before.coverage,
+                         an.coverage_after.coverage],
+            "chains": len(an.chains), "scoped_links": len(scoped),
+            "recommendations": "Recommendations" in ctx}
+        d = diag[name]
+        print(f"  {name} form, loss at {FUSED_LEO_LAYERS} layers: captured "
+              f"{d['instructions']} instructions (regions "
+              f"{d['kernel_regions']}) in {capture_s:.2f} s, diagnosed in "
+              f"{analysis_s:.2f} s; LEO estimated "
+              f"{d['estimated_step_s'] * 1e3:.3f} ms beside "
+              f"{d['measured_s'] * 1e3:.3f} ms measured; roofline memory "
+              f"{d['memory_s'] * 1e3:.3f} ms, compute "
+              f"{d['compute_s'] * 1e3:.3f} ms; coverage "
+              f"{d['coverage'][0]:.4f} -> {d['coverage'][1]:.4f}; "
+              f"{d['chains']} chains")
+        require(an.chains or an.blame.occupancy_blame,
+                f"phase 19 {name}: LEO produced no diagnosis")
+        require(scoped, f"phase 19 {name}: no chain carries an op_name "
+                f"scope")
+        require(d["coverage"][1] >= d["coverage"][0],
+                f"phase 19 {name}: coverage degraded {d['coverage']}")
+        require(d["recommendations"], f"phase 19 {name}: no "
+                f"Recommendations")
+        require(module.kernel_calls.get(on) == FUSED_LEO_LAYERS and
+                SSM_ENTRY[name][1] not in module.kernel_calls,
+                f"phase 19 {name}: regions {module.kernel_calls}")
+        require(readouts == FUSED_LEO_LAYERS * s // 128,
+                f"phase 19 {name}: {readouts} readouts, not S/128 a layer")
+    require(diag["fused"]["memory_s"] < diag["default"]["memory_s"],
+            f"phase 19: memory term {diag['default']['memory_s']} -> "
+            f"{diag['fused']['memory_s']} did not drop")
+    flops = (diag["default"]["hlo_flops"], diag["fused"]["hlo_flops"])
+    require(abs(flops[1] - flops[0]) <= 0.01 * flops[0],
+            f"phase 19: FLOPs {flops} not within 1%")
+    return {"B": b, "S": s, "bf16": runs, "bf16_fused_vs_default": bf16_gap,
+            "f32": f32, "leo": diag}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -2861,6 +3209,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import attention as attention_module
     from repro_torch.models import moe as moe_module
+    from repro_torch.models import ssm as ssm_module
     from repro_torch.models import transformer as transformer_module
     from repro_torch.models import xlstm as xlstm_module
     from repro_torch.models import (forward, init_params, layer_descriptors,
@@ -2941,6 +3290,16 @@ def main(argv=None) -> int:
             r.get("spill_bytes") == 0 and r.get("registers") for r in
             rep.values()), f"phase 2: {marker} instantiations {rep}: "
                 f"{count}, each reported with 0 spill bytes")
+    # K4's fused entry by dtype and state size N (1, 2, 4, 8, 16, 32)
+    fused_ptxas = ptxas_report(log.read_text(), "ssm_scan_fused_kernel")
+    print("  ssm_scan_fused_kernel, ptxas by dtype,N: " + ", ".join(
+        f"{key} {r.get('registers')} registers {r.get('spill_bytes')} "
+        f"spill bytes" for key, r in sorted(fused_ptxas.items())))
+    require(len(fused_ptxas) == 12 and all(
+        r.get("spill_bytes") == 0 and r.get("registers") for r in
+        fused_ptxas.values()), f"phase 2: ssm_scan_fused_kernel "
+            f"instantiations {fused_ptxas}: 12, each reported with 0 spill "
+            f"bytes")
 
     # phase 3
     print("phase 3: kernels against their plain versions")
@@ -3010,6 +3369,20 @@ def main(argv=None) -> int:
     scan += [check_ssm_scan(torch, ops, dt, s=s, din=din, n=n)
              for s, din, n in ((32, 128, 8), (64, 256, 16))
              for dt in ("float32", "bfloat16")]
+    # K4's fused entry at hymba's prefill shape, xin as the model hands it
+    # (bf16, a view of rows of 2 din) first; then f32, contiguous xin, and
+    # the edges of its groups and lanes
+    rate = sfu_rate(torch)
+    scan_fused = [
+        check_ssm_scan_fused(torch, ops, "bfloat16", strided=True,
+                             timed=True, rate=rate),
+        check_ssm_scan_fused(torch, ops, "float32", timed=True, rate=rate),
+        check_ssm_scan_fused(torch, ops, "bfloat16", timed=True, rate=rate),
+        check_ssm_scan_fused(torch, ops, "float32", strided=True)]
+    scan_fused += [check_ssm_scan_fused(torch, ops, dt, s=s, din=din, n=n)
+                   for s, din, n in ((32, 128, 8), (1000, 320, 32),
+                                     (40, 100, 1))
+                   for dt in ("float32", "bfloat16")]
 
     # phases 4 and 5
     cfg = get_config(ARCH)
@@ -3152,14 +3525,27 @@ def main(argv=None) -> int:
                             "attention": attention_module})
     print(f"  phase 18: {time.perf_counter() - t0:.1f} s")
 
+    # phase 19
+    print(f"phase 19: {HYBRID_ARCH} at full width under the SSM's default "
+          f"and fused forms (K4's two entries), the LEO loop on both "
+          f"({smi})")
+    t0 = time.perf_counter()
+    fused_ssm = run_fused_ssm(torch, ops, core, hcfg, flags,
+                              make_prefill_step, init_params, loss_fn,
+                              ssm_module)
+    fused_ssm["seconds"] = time.perf_counter() - t0
+    print(f"  phase 19: {fused_ssm['seconds']:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
+    main_fused = scan_fused[0]  # bf16 strided xin at hymba's prefill shape
     main_mlstm, main_slstm = mlstm[0], slstm[0]  # bf16, xlstm's prefill
     main_runs = (prefill, serve, hprefill, hserve, study, loop, xprefill,
                  xserve, trained, driven) + tuple(
                      row[part] for row in sliced.values()
-                     for part in ("prefill", "serve"))
+                     for part in ("prefill", "serve")) + tuple(
+                         fused_ssm["bf16"].values())
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3214,6 +3600,17 @@ def main(argv=None) -> int:
          "ms": main_scan["ms"], "plain_ms": main_scan["plain_ms"],
          "bound_ms": main_scan["bound_ms"],
          "bound_by": main_scan["bound_by"], "library_ms": None},
+        {"name": "ssm_scan_fused", "route": "cuda", "status": "ok",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:38",
+         # the reference model's fused region it also takes in
+         "region": "src/repro/models/ssm.py:84",
+         "launches": sum(r["launches"].get("ssm_scan_fused", 0)
+                         for r in main_runs),
+         "max_abs_err": max(r["max_abs_err"] for r in scan_fused),
+         "ms": main_fused["ms"], "plain_ms": main_fused["plain_ms"],
+         "bound_ms": main_fused["bound_ms"],
+         "bound_by": main_fused["bound_by"], "library_ms": None},
         {"name": "mlstm_chunkwise", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan.py:73",
@@ -3240,7 +3637,8 @@ def main(argv=None) -> int:
         "build_seconds": build_s, "rmsnorm_ptxas": rms_ptxas,
         "xlstm_ptxas": xlstm_ptxas,
         "flash_attention": fa, "rmsnorm": rms,
-        "ssm_scan": scan, "wide_rmsnorm": wide_rms,
+        "ssm_scan": scan, "ssm_scan_fused": scan_fused,
+        "ssm_scan_fused_ptxas": fused_ptxas, "wide_rmsnorm": wide_rms,
         "wide_rmsnorm_baseline": wide_base, "prefill": prefill,
         "serve": serve,
         "hybrid_prefill": hprefill, "hybrid_serve": hserve,
@@ -3249,7 +3647,7 @@ def main(argv=None) -> int:
         "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
         "train_driver": driven, "upper_tiers": upper,
         "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
-        "slice": sliced,
+        "slice": sliced, "fused_ssm": fused_ssm,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -55,6 +55,10 @@ SIGNATURES = {
     # dtype (a, bx, c), a, bx, c, y, B, S, din, N, stream
     "repro_ssm_scan_fwd": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _P],
+    # dtype (xin), xin, its batch and time strides (elements), w_dt,
+    # a_log, bsel, csel, y, B, S, din, N, stream
+    "repro_ssm_scan_fused_fwd": [_INT, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                                 _I64, _I64, _I64, _I64, _P],
     # dtype (q, k, v), q, k, v, log_i, log_f, out, state scratch C, n, m,
     # B, S, H, hd, chunk, passes (1 states, 2 outputs, 3 both), stream
     "repro_mlstm_chunkwise_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,

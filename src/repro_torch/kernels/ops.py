@@ -1,7 +1,8 @@
 """Public entry points of the port's kernels (the counterpart of
 `repro.kernels.ops`): `rmsnorm_op` is the pipelined variant, as there,
 `rmsnorm_baseline_op` the baseline of the case study, `ssm_scan_op`
-the selective scan, and `mlstm_chunkwise_op` / `slstm_scan_op` xLSTM's two
+the selective scan (`ssm_scan_fused` its entry with the discretization
+fused in), and `mlstm_chunkwise_op` / `slstm_scan_op` xLSTM's two
 recurrences.
 
 `launch_counts()` / `reset_launch_counts()` read and zero the wrappers'
@@ -17,7 +18,8 @@ from .flash_attention import flash_attention, flash_attention_plain
 from .mlstm_scan import mlstm_chunkwise, mlstm_chunkwise_plain
 from .rmsnorm import rmsnorm_baseline, rmsnorm_pipelined, rmsnorm_plain
 from .slstm_scan import slstm_scan, slstm_scan_plain
-from .ssm_scan import ssm_scan, ssm_scan_plain
+from .ssm_scan import (ssm_fused_plain, ssm_scan, ssm_scan_chunked,
+                       ssm_scan_fused, ssm_scan_plain)
 
 rmsnorm_op = rmsnorm_pipelined
 rmsnorm_baseline_op = rmsnorm_baseline
@@ -29,6 +31,7 @@ KERNELS = {"flash_attention": flash_attention,
            "rmsnorm_pipelined": rmsnorm_pipelined,
            "rmsnorm_baseline": rmsnorm_baseline,
            "ssm_scan": ssm_scan,
+           "ssm_scan_fused": ssm_scan_fused,
            "mlstm_chunkwise": mlstm_chunkwise,
            "slstm_scan": slstm_scan}
 
@@ -49,6 +52,6 @@ __all__ = [
     "mlstm_chunkwise", "mlstm_chunkwise_op", "mlstm_chunkwise_plain",
     "reset_launch_counts", "rmsnorm_baseline", "rmsnorm_baseline_op",
     "rmsnorm_op", "rmsnorm_pipelined", "rmsnorm_plain", "slstm_scan",
-    "slstm_scan_op", "slstm_scan_plain", "ssm_scan", "ssm_scan_op",
-    "ssm_scan_plain",
+    "slstm_scan_op", "slstm_scan_plain", "ssm_fused_plain", "ssm_scan",
+    "ssm_scan_chunked", "ssm_scan_fused", "ssm_scan_op", "ssm_scan_plain",
 ]

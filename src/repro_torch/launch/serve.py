@@ -73,7 +73,7 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: List[Request] = []
         self.ticks = 0
-        self._step = make_serve_step(cfg)
+        self._step = make_serve_step(cfg, per_slot_pos=True)
 
     def submit(self, request: Request) -> None:
         self.queue.append(request)

@@ -4,11 +4,19 @@ Recurrence per channel with state size N:
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t          (N-vector)
     y_t = C_t . h_t + D * x_t
 
-Prefill discretizes the whole sequence into a/bx (B, S, din, N) f32, as the
-reference's non-fused branch does, and runs the selective-scan kernel on
-CUDA tensors; the plain path (CPU tensors, or `flags(force_plain=True)`) is
-the exact sequential scan `ssm_scan_plain`.  Decode carries `h` as O(1)
-state and is plain PyTorch, as the reference's is plain jnp.
+Prefill has the reference's two forms, chosen by `flags.ssm_fused`:
+  * whole-sequence (default): a/bx discretized for the whole sequence,
+    (B, S, din, N) f32 each; CUDA tensors go through the selective-scan
+    kernel's entry `ssm_scan` (K4) on them;
+  * fused: each chunk of 128 discretized inside the scan, so a/bx exist
+    only as (B, 128, din, N) transients; under `flags.ssm_pallas` CUDA
+    tensors go through K4's fused entry `ssm_scan_fused` (xin in, y out),
+    otherwise through the chunked form in PyTorch ops.
+The plain path (CPU tensors, or `flags(force_plain=True)`) of either form
+is the reference's chunked scan (`kernels/ssm_scan.py::ssm_scan_chunked`,
+`ssm_fused_plain`), and so is the region a capture records for each kernel:
+S/128 chunk iterations a layer.  Decode carries `h` as O(1) state and is
+plain PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.torch_frontend import kernel_call
-from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from ..kernels.ssm_scan import (discretize, ssm_fused_plain, ssm_scan,
+                                ssm_scan_chunked, ssm_scan_fused)
 from .flags import get_flags
 from .layers import linear
 
@@ -46,13 +55,15 @@ def init_ssm(cfg: ArchConfig, reps: int, normal, dtype: torch.dtype,
     }
 
 
+def _selections(p: Params, xin: torch.Tensor):
+    """bsel, csel (..., N) f32, from the linear in xin's dtype."""
+    return linear(xin, p["w_b"]).float(), linear(xin, p["w_c"]).float()
+
+
 def _discretize(p: Params, xin: torch.Tensor):
     """xin (..., din) -> (a (...,din,N), bx (...,din,N), c (...,N)), f32."""
-    dt = F.softplus(xin.float() * p["w_dt"])                  # (..., din)
-    a = torch.exp(-torch.exp(p["a_log"]) * dt[..., None])     # (..., din, N)
-    bsel = linear(xin, p["w_b"]).float()                      # (..., N)
-    csel = linear(xin, p["w_c"]).float()                      # (..., N)
-    bx = (dt * xin.float())[..., None] * bsel[..., None, :]
+    bsel, csel = _selections(p, xin)
+    a, bx = discretize(xin, p["w_dt"], p["a_log"], bsel)
     return a, bx, csel
 
 
@@ -64,16 +75,27 @@ def _readout(p: Params, y: torch.Tensor, xin: torch.Tensor, z: torch.Tensor,
     return linear(y, p["w_out"])
 
 
+def _kernel_path(x: torch.Tensor) -> bool:
+    """Whether prefill takes K4: CUDA tensors, unless `force_plain`."""
+    return x.device.type == "cuda" and not get_flags().force_plain
+
+
 def ssm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D)."""
+    """x (B, S, D) -> (B, S, D), a chunk of SSM_CHUNK (128) steps at a time
+    on the plain path."""
     din = cfg.ssm_expand * x.shape[-1]
     xz = linear(x, p["w_in"])
     xin, z = xz[..., :din], xz[..., din:]
-    a, bx, csel = _discretize(p, xin)
-    if x.device.type == "cuda" and not get_flags().force_plain:
-        y = kernel_call(ssm_scan, a, bx, csel, plain_fn=ssm_scan_plain)
+    f = get_flags()
+    kernel = _kernel_path(x)
+    if f.ssm_fused:
+        args = (xin, p["w_dt"], p["a_log"], *_selections(p, xin))
+        y = kernel_call(ssm_scan_fused, *args, plain_fn=ssm_fused_plain) \
+            if kernel and f.ssm_pallas else ssm_fused_plain(*args)
     else:
-        y = ssm_scan_plain(a, bx, csel)
+        a, bx, csel = _discretize(p, xin)
+        y = kernel_call(ssm_scan, a, bx, csel, plain_fn=ssm_scan_chunked) \
+            if kernel else ssm_scan_chunked(a, bx, csel)
     return _readout(p, y, xin, z, x.dtype)
 
 

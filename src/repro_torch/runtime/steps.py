@@ -13,12 +13,15 @@ py::train_state_from_numpy`):
     {"params", "opt": {"mu", "nu", "master", "count"}, "step"[, "grad_ef"]}
 and the step updates its optimizer state in place.
 
-`make_serve_step` is the reference's `make_serve_step(per_slot_pos=True)`:
-    (params, decode_state, token (B,), pos (B,)) -> (next_token, logits, state)
-one-token greedy decode in which every batch slot sits at its own position.
-The reference vmaps a one-slot step over the batch; here the batch
-dimension is written out in `attn_decode`, and the caches are updated in
-place.
+`make_serve_step(cfg, chunk=512, per_slot_pos=False)` is the reference's:
+    (params, decode_state, token (B,), pos) -> (next_token, logits, state)
+one-token greedy decode, in one of two forms.  `per_slot_pos=False` takes a
+0-dim `pos` shared by every slot (MoE layers route the B tokens together,
+as the reference's scalar step does, and may drop); `per_slot_pos=True`
+takes a (B,) `pos`, one position a slot (each slot's MoE routed alone), the
+form `ServeEngine` uses.  A position of the other shape raises.  The
+reference vmaps a one-slot step over the batch; here the batch dimension is
+written out in `attn_decode`, and the caches are updated in place.
 """
 from __future__ import annotations
 
@@ -128,8 +131,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     return train_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, chunk: int = 512,
+                    per_slot_pos: bool = False):
+    """One-token decode step.  `chunk` is the reference's argument, unused
+    by a one-token step there too.  `pos` must be 0-dim unless
+    `per_slot_pos`, then of shape (B,)."""
     def serve_step(params, state, token, pos):
+        shape = tuple(torch.as_tensor(pos).shape)
+        want = (token.shape[0],) if per_slot_pos else ()
+        if shape != want:
+            raise ValueError(
+                f"serve_step(per_slot_pos={per_slot_pos}): pos has shape "
+                f"{shape}, expected {want}")
         logits, state = model_decode_step(params, state, cfg, token, pos)
         return logits.argmax(dim=-1).int(), logits, state
 

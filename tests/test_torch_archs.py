@@ -168,7 +168,7 @@ def test_decode_step_both_forms_match_reference(arch):
     j_next, j_logits, j_new = j_serve_step(jcfg, per_slot_pos=True)(
         jp_dec, j_state, jnp.asarray(token, jnp.int32),
         jnp.asarray(pos, jnp.int32))
-    t_next, t_logits, t_new = make_serve_step(tcfg)(
+    t_next, t_logits, t_new = make_serve_step(tcfg, per_slot_pos=True)(
         tp, t_state, torch.from_numpy(token), torch.from_numpy(pos))
     _close(t_logits, j_logits, 1e-4)
     assert t_next.tolist() == np.asarray(j_next).tolist()

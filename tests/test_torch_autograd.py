@@ -161,6 +161,8 @@ ROUTES = {
         ops.rmsnorm_plain, eps=1e-5), [(12, 32), (32,)], {"eps": 1e-5}),
     "ssm_scan": (ops.ssm_scan, ops.ssm_scan_plain,
                  [(2, 6, 8, 4), (2, 6, 8, 4), (2, 6, 4)], {}),
+    "ssm_scan_fused": (ops.ssm_scan_fused, ops.ssm_fused_plain,
+                       [(2, 6, 8), (8,), (8, 4), (2, 6, 4), (2, 6, 4)], {}),
     "mlstm_chunkwise": (ops.mlstm_chunkwise, _mlstm_plain,
                         [(1, 16, 2, 8)] * 3 + [(1, 16, 2)] * 2,
                         {"chunk": 8}),
@@ -196,7 +198,8 @@ def test_kernel_call_gives_the_plain_gradient(name):
 
 @pytest.mark.parametrize("name", ["flash_attention", "rmsnorm_pipelined",
                                   "rmsnorm_baseline", "ssm_scan",
-                                  "mlstm_chunkwise", "slstm_scan"])
+                                  "ssm_scan_fused", "mlstm_chunkwise",
+                                  "slstm_scan"])
 def test_each_check_refuses_an_input_that_requires_grad(name):
     fn = ops.KERNELS[name]
     route = ROUTES["rmsnorm_pipelined" if name == "rmsnorm_baseline"

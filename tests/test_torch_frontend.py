@@ -197,6 +197,12 @@ KERNEL_CASES = {
     "ssm_scan": (ops.ssm_scan, ops.ssm_scan_plain,
                  [(2, 16, 32, 16), (2, 16, 32, 16), (2, 16, 16)],
                  [(2, 16, 32, 12), (2, 16, 32, 12), (2, 16, 12)]),  # N 12
+    "ssm_scan_fused": (ops.ssm_scan_fused, ops.ssm_fused_plain,
+                       [(2, 16, 32), (32,), (32, 16), (2, 16, 16),
+                        (2, 16, 16)],
+                       # N 12
+                       [(2, 16, 32), (32,), (32, 12), (2, 16, 12),
+                        (2, 16, 12)]),
     "mlstm_chunkwise": (ops.mlstm_chunkwise, ops.mlstm_chunkwise_plain,
                         [(1, 64, 2, 16)] * 3 + [(1, 64, 2)] * 2,
                         # chunk 64 does not divide S 96

@@ -12,7 +12,8 @@ Tolerances, element by element: f32 2e-5 (flash attention) / 1e-5
 f32 result.  The selective scan returns f32 whatever its input type and
 computes in f32, so every case is held to 1e-4 absolute and relative, the
 tolerance of `tests/test_kernels.py::TestSsmKernel` (the recurrence fused
-into one multiply-add, the readout summed in another order).  The chunkwise
+into one multiply-add, the readout summed in another order); so is its
+fused entry, which discretizes with the same f32 functions.  The chunkwise
 mLSTM in f32 is held to 1e-4 absolute and relative, the tolerance of
 `tests/test_kernels.py::TestMlstmKernel` (the chunkwise form against the
 step-by-step oracle).
@@ -262,6 +263,7 @@ def test_prefill_kernel_path_matches_plain_path():
     assert ops.launch_counts() == {"flash_attention": cfg.n_layers,
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
                                    "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "ssm_scan_fused": 0,
                                    "mlstm_chunkwise": 0, "slstm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
@@ -321,6 +323,101 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take():
     assert ops.ssm_scan.launches == before
 
 
+def _fused_inputs(b, s, din, n, dtype, device, strided=False):
+    """xin (a view of a (B, S, 2 din) tensor when `strided`, as the model
+    hands it), w_dt, a_log = log(1..N), bsel and csel."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    xz = torch.randn((b, s, 2 * din if strided else din), generator=gen,
+                     device=device).to(getattr(torch, dtype))
+    w_dt = torch.randn((din,), generator=gen, device=device)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device)).expand(din, n).contiguous()
+    bsel = 0.5 * torch.randn((b, s, n), generator=gen, device=device)
+    csel = 0.5 * torch.randn((b, s, n), generator=gen, device=device)
+    return xz[..., :din], w_dt, a_log, bsel, csel
+
+
+@pytest.mark.parametrize("s,din,n,strided", [
+    (32, 128, 8, False),
+    (64, 256, 16, True),
+    (1000, 320, 16, True),  # ragged S, no multiple of a 16-step group
+    (64, 100, 8, False),    # din no multiple of a block's channels
+    (40, 64, 32, False),
+    (40, 64, 1, True),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_fused(s, din, n, strided, dtype):
+    """K4's fused entry against the oracle on the terms its plain version
+    discretizes, 1e-4 absolute and relative as `test_ssm_scan`; and
+    against its plain version, the chunked form."""
+    from repro_torch.kernels.ssm_scan import discretize
+    dev = _cuda()
+    xin, w_dt, a_log, bsel, csel = _fused_inputs(2, s, din, n, dtype, dev,
+                                                 strided)
+    assert xin.is_contiguous() != strided
+    before = ops.ssm_scan_fused.launches
+    out = ops.ssm_scan_fused(xin, w_dt, a_log, bsel, csel)
+    assert ops.ssm_scan_fused.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (2, s, din)
+    a, bx = discretize(xin, w_dt, a_log, bsel)
+    _close(out, ops.ssm_scan_plain(a, bx, csel), (1e-4, 1e-4))
+    _close(out, ops.ssm_fused_plain(xin, w_dt, a_log, bsel, csel),
+           (1e-4, 1e-4))
+    # a copy of the view gives the same bits
+    assert torch.equal(ops.ssm_scan_fused(xin.contiguous(), w_dt, a_log,
+                                          bsel, csel), out)
+
+
+def test_ssm_scan_fused_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    xin, w_dt, a_log, bsel, csel = _fused_inputs(2, 16, 64, 16, "float32",
+                                                 dev)
+    before = ops.ssm_scan_fused.launches
+    with pytest.raises(ValueError, match="N=12"):
+        ops.ssm_scan_fused(xin, w_dt, a_log[:, :12].contiguous(),
+                           bsel[..., :12].contiguous(),
+                           csel[..., :12].contiguous())
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssm_scan_fused(xin.transpose(1, 2), w_dt[:16], a_log[:16],
+                           bsel, csel)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.ssm_scan_fused(xin, w_dt, a_log, bsel, csel.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssm_scan_fused(xin, w_dt, a_log, bsel.bfloat16(), csel)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.ssm_scan_fused(xin.half(), w_dt, a_log, bsel, csel)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.ssm_scan_fused(xin, w_dt[:32], a_log, bsel, csel)
+    assert ops.ssm_scan_fused.launches == before
+
+
+def test_hybrid_fused_forms_on_the_card():
+    """hymba smoke, f32: under ssm_fused + ssm_pallas the fused entry
+    launches once a layer and the old entry never, its logits within 1e-4
+    of the forced-plain path's (the chunked form) and of the default
+    kernel path's; ssm_fused alone runs the chunked form, no K4."""
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("hymba-1.5b")),
+                              dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=dev)
+    default, _ = tt.forward(params, cfg, tokens=tokens)
+    runs = {}
+    for name, kw in (("pallas", {"ssm_pallas": True}), ("chunked", {})):
+        ops.reset_launch_counts()
+        with flags(ssm_fused=True, **kw):
+            runs[name], _ = tt.forward(params, cfg, tokens=tokens)
+        counts = ops.launch_counts()
+        assert counts["ssm_scan"] == 0
+        assert counts["ssm_scan_fused"] == (cfg.n_layers if kw else 0)
+        assert counts["flash_attention"] == cfg.n_layers
+    with flags(ssm_fused=True, ssm_pallas=True, force_plain=True):
+        plain, _ = tt.forward(params, cfg, tokens=tokens)
+    for got in (runs["pallas"], runs["chunked"]):
+        _close(got, plain, (1e-4, 1e-4))
+        _close(got, default, (1e-4, 1e-4))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_head_dim_120(dtype):
     """h2o-danube's hd 120 runs as hd 128, zero-padded, at 1/sqrt(120)."""
@@ -378,6 +475,7 @@ def test_hymba_prefill_kernel_path_matches_plain_path():
                                    "rmsnorm_pipelined": 2 * cfg.n_layers + 1,
                                    "rmsnorm_baseline": 0,
                                    "ssm_scan": cfg.n_layers,
+                                   "ssm_scan_fused": 0,
                                    "mlstm_chunkwise": 0, "slstm_scan": 0}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
@@ -517,6 +615,7 @@ def test_xlstm_prefill_kernel_path_matches_plain_path():
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "rmsnorm_pipelined": 8,
                                    "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "ssm_scan_fused": 0,
                                    "mlstm_chunkwise": 3, "slstm_scan": 1}
     with flags(force_plain=True):
         plain, _ = tt.forward(params, cfg, tokens=tokens)
@@ -551,6 +650,7 @@ def test_slice_prefill_kernel_path_matches_plain_path(arch, k1, k2):
     assert ops.launch_counts() == {"flash_attention": k1,
                                    "rmsnorm_pipelined": k2,
                                    "rmsnorm_baseline": 0, "ssm_scan": 0,
+                                   "ssm_scan_fused": 0,
                                    "mlstm_chunkwise": 0, "slstm_scan": 0}
     with flags(force_plain=True):
         plain, plain_aux = tt.forward(params, cfg, **batch)
@@ -656,6 +756,8 @@ def test_each_wrapper_refuses_an_input_that_requires_grad():
         "rmsnorm_pipelined": [(8, 896), (896,)],
         "rmsnorm_baseline": [(8, 896), (896,)],
         "ssm_scan": [(1, 16, 32, 16), (1, 16, 32, 16), (1, 16, 16)],
+        "ssm_scan_fused": [(1, 16, 32), (32,), (32, 16), (1, 16, 16),
+                           (1, 16, 16)],
         "mlstm_chunkwise": [(1, 64, 2, 32)] * 3 + [(1, 64, 2)] * 2,
         "slstm_scan": [(1, 8, 256), (64, 256)],
     }

@@ -6,7 +6,8 @@ the reference and carried across with `params_from_numpy`.
 
 Tolerances are those of `tests/test_torch_model.py`: f32 logits at 1e-4
 (the same f32 arithmetic through two layers, summed in another order, and
-the SSM scanned sequentially here against the reference's associative scan);
+the SSM scanned by doubling within each chunk here against the reference's
+associative scan);
 bf16 logits at 2e-2 of the largest logit (bf16 rounds the residual stream
 at other places in the two frameworks).
 """
@@ -95,7 +96,7 @@ def test_decode_past_the_window_per_slot(arch):
     offsets = np.array([0, 7, 30])
     toks = _tokens((steps, b), seed=2)
     j_step = jax.jit(j_serve_step(jcfg, per_slot_pos=True))
-    t_step = make_serve_step(tcfg)
+    t_step = make_serve_step(tcfg, per_slot_pos=True)
     j_state = jt.init_decode_state(jcfg, b, max_len)
     t_state = tt.init_decode_state(tcfg, b, max_len, "cpu")
     assert t_state["groups"][0]["kv"]["k"].shape[2] == jcfg.window

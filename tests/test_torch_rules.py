@@ -228,7 +228,8 @@ def test_build_without_nvcc_raises(no_nvcc):
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm_pipelined",
                                     "rmsnorm_baseline", "ssm_scan",
-                                    "mlstm_chunkwise", "slstm_scan"])
+                                    "ssm_scan_fused", "mlstm_chunkwise",
+                                    "slstm_scan"])
 def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     from repro_torch.kernels import ops
     fn = ops.KERNELS[kernel]
@@ -238,6 +239,11 @@ def test_wrapper_off_cpu_raises_instead_of_plain(no_nvcc, kernel):
     elif kernel == "ssm_scan":
         args = [torch.empty((2, 64, 256, 16), device="meta")] * 2 + \
             [torch.empty((2, 64, 16), device="meta")]
+    elif kernel == "ssm_scan_fused":
+        args = [torch.empty((2, 64, 256), device="meta"),
+                torch.empty((256,), device="meta"),
+                torch.empty((256, 16), device="meta")] + \
+            [torch.empty((2, 64, 16), device="meta")] * 2
     elif kernel == "mlstm_chunkwise":
         args = [torch.empty((2, 128, 4, 192), device="meta")] * 3 + \
             [torch.empty((2, 128, 4), device="meta")] * 2

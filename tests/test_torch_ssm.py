@@ -108,7 +108,7 @@ def test_discretize(dtype, tol):
 @pytest.mark.parametrize("s", [64, 256])
 def test_ssm_forward_f32(fused, s):
     """Both forms of the reference (`ssm_fused`), chunked associative scans,
-    against the port's plain path, the exact sequential scan."""
+    against the port's default plain path, the chunked doubling scan."""
     jcfg, tcfg = _cfgs("float32")
     j_p, t_p = _layer0_ssm(jcfg, tcfg)
     jx, tx = _x((2, s, jcfg.d_model), "float32")
