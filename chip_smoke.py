@@ -26,7 +26,8 @@ error:
      `ssm_scan_plain` on the terms its plain version discretizes, at
      hymba-1.5b's shape with xin bf16 (a strided view, as the model hands
      it) and f32, its bound the larger of its bytes and its exponentials
-     over the special-function units (`sfu_rate`);
+     over the special-function units (`sfu_rate`), its registers, blocks
+     resident an SM and waves;
   4. prefill at full qwen2-0.5b width (B 4 x S 1024) through
      `make_prefill_step`, kernel path against forced-plain path, with the
      launch counts of each kernel (every flash-attention launch on the
@@ -487,7 +488,8 @@ def fused_scan_inputs(torch, dt_name: str, b, s, din, n, strided=False):
 
 
 def check_ssm_scan_fused(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
-                         n=16, strided=False, timed=False, rate=None):
+                         n=16, strided=False, timed=False, rate=None,
+                         ptxas=None):
     """K4's fused entry against `ssm_scan_plain(*discretize(xin, ...),
     csel)`, the exact sequential loop on the terms the plain version
     discretizes, held to the existing entry's 1e-4 absolute + 1e-4
@@ -497,8 +499,10 @@ def check_ssm_scan_fused(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
     form), the oracle, and its bound: the larger of the bytes (xin as
     read, w_dt, a_log, bsel, csel, y) over 3.35 TB/s and the
     exponentials (one for each a, and softplus's exp and log1p once a
-    channel and step) over `rate`."""
-    from repro_torch.kernels.ssm_scan import discretize
+    channel and step) over `rate`; and how its grid meets the card:
+    registers a thread (phase 2's `ptxas`), blocks resident an SM, the
+    grid's blocks and its waves."""
+    from repro_torch.kernels.ssm_scan import discretize, fused_grid
 
     xin, w_dt, a_log, bsel, csel = fused_scan_inputs(torch, dt_name, b, s,
                                                      din, n, strided)
@@ -541,6 +545,16 @@ def check_ssm_scan_fused(torch, ops, dt_name: str, *, b=2, s=2048, din=3200,
         row["oracle_ms"] = call_ms(torch, lambda: ops.ssm_scan_plain(
             *discretize(xin, w_dt, a_log, bsel), csel), samples=3, reps=1)
         row["library_ms"] = None  # no single PyTorch call computes it
+        row["grid"] = fused_grid(xin, n)
+        row["grid"]["registers"] = (ptxas or {}).get(
+            f"{'bf16' if dt_name == 'bfloat16' else 'f32'},{n}",
+            {}).get("registers")
+        print(f"  {case}: {row['grid']['registers']} registers a thread, "
+              f"{row['grid']['blocks_an_sm']} blocks an SM, "
+              f"{row['grid']['grid_blocks']} blocks in the grid "
+              f"({row['grid']['channels_a_block']} channels a block), "
+              f"{row['grid']['waves']:.3f} waves on {row['grid']['sms']} "
+              f"SMs")
     print(f"  {case}: max_abs_err {err:.3e} (tol {tol})"
           + (f", ms {row['ms']:.4f} (call {row['call_ms']:.4f}), "
              f"plain_ms {row['plain_ms']:.3f} (chunked form; sequential "
@@ -3371,17 +3385,20 @@ def main(argv=None) -> int:
              for dt in ("float32", "bfloat16")]
     # K4's fused entry at hymba's prefill shape, xin as the model hands it
     # (bf16, a view of rows of 2 din) first; then f32, contiguous xin, and
-    # the edges of its groups and lanes
+    # the edges of its chunks (128 steps) and channel tiles (16)
     rate = sfu_rate(torch)
     scan_fused = [
         check_ssm_scan_fused(torch, ops, "bfloat16", strided=True,
-                             timed=True, rate=rate),
-        check_ssm_scan_fused(torch, ops, "float32", timed=True, rate=rate),
-        check_ssm_scan_fused(torch, ops, "bfloat16", timed=True, rate=rate),
+                             timed=True, rate=rate, ptxas=fused_ptxas),
+        check_ssm_scan_fused(torch, ops, "float32", timed=True, rate=rate,
+                             ptxas=fused_ptxas),
+        check_ssm_scan_fused(torch, ops, "bfloat16", timed=True, rate=rate,
+                             ptxas=fused_ptxas),
         check_ssm_scan_fused(torch, ops, "float32", strided=True)]
     scan_fused += [check_ssm_scan_fused(torch, ops, dt, s=s, din=din, n=n)
                    for s, din, n in ((32, 128, 8), (1000, 320, 32),
-                                     (40, 100, 1))
+                                     (40, 100, 1), (1, 64, 16),
+                                     (129, 3201, 16))
                    for dt in ("float32", "bfloat16")]
 
     # phases 4 and 5

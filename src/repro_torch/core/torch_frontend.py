@@ -19,6 +19,17 @@ One `Instruction` per dispatched op, in the single entry computation:
   tensor operands', bytes written the output's.  A view (`view`,
   `permute`, `expand`, `slice`, ...) launches nothing in eager PyTorch, so
   it moves no bytes here; a copy (`_to_copy`, `clone`, `cat`) does.
+* gathers and parameters follow `repro.core.hlo_parser` and its fusion
+  model instead, because LEO's loop diagnoses the reference's compiled HLO.
+  There a table read at indices is a `gather` inside a loop fusion, one
+  kernel: `embedding`, `index_select`, `gather`, `index` and
+  `nll_loss_forward` (the label pick of the loss, `take_along_axis` in the
+  reference) are recorded with opcode `gather` and class FUSION, each one
+  eager kernel on the card, and read the rows they take, each at least a
+  256-byte granule and at most 8x the useful bytes, plus their indices
+  (`_gather_bytes`), not their whole table.  A parameter is a buffer
+  binding and moves nothing itself: every op that reads it pays for its
+  read (`repro/core/fusion_model.py:207-211`).
 * operands are the tensors the op reads, by identity; an in-place op
   renames its output.
 * `source_file`/`source_line` are the innermost frame of the `repro_torch`
@@ -73,9 +84,7 @@ _OP_CLASS = {
     "prod": OpClass.REDUCE, "argmax": OpClass.REDUCE,
     "argmin": OpClass.REDUCE, "cumsum": OpClass.REDUCE,
     "logsumexp": OpClass.REDUCE, "var_mean": OpClass.REDUCE,
-    "embedding": OpClass.MEMORY_LOAD, "index": OpClass.MEMORY_LOAD,
-    "gather": OpClass.MEMORY_LOAD, "index_select": OpClass.MEMORY_LOAD,
-    "arange": OpClass.MEMORY_LOAD, "nll_loss_forward": OpClass.MEMORY_LOAD,
+    "arange": OpClass.MEMORY_LOAD,
     "index_put": OpClass.MEMORY_STORE, "_index_put_impl": OpClass.MEMORY_STORE,
     "scatter": OpClass.MEMORY_STORE, "scatter_add": OpClass.MEMORY_STORE,
     "index_copy": OpClass.MEMORY_STORE, "index_add": OpClass.MEMORY_STORE,
@@ -88,6 +97,16 @@ _OP_CLASS = {
     "lift_fresh_copy": OpClass.DATA_MOVEMENT, "fill": OpClass.DATA_MOVEMENT,
     "zero": OpClass.DATA_MOVEMENT, "flip": OpClass.DATA_MOVEMENT,
 }
+
+# aten ops that read a table's rows at indices: one HLO `gather` each in
+# the reference's compiled program, inside a fusion (an eager kernel here)
+_GATHERS = {"embedding", "index_select", "gather", "index",
+            "nll_loss_forward"}
+# `repro/core/hlo_parser.py:427-433`: HBM moves at least a 256-byte granule
+# a gathered row, and a gather of small rows pays at most 8x its useful
+# bytes ("real gathers coalesce partially")
+_GRANULE = 256.0
+_GRANULE_CAP = 8.0
 
 # 8 FLOPs per element, as `jaxpr_frontend._TRANSCENDENTAL_PRIMS`; the fused
 # softmaxes and SiLU, which jax spells with exp / logistic, count so too.
@@ -120,7 +139,10 @@ def _base_name(func) -> str:
 def _op_class(func) -> OpClass:
     if getattr(func, "is_view", False):
         return OpClass.DATA_MOVEMENT
-    return _OP_CLASS.get(_base_name(func), OpClass.COMPUTE)
+    name = _base_name(func)
+    if name in _GATHERS:
+        return OpClass.FUSION
+    return _OP_CLASS.get(name, OpClass.COMPUTE)
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -184,7 +206,9 @@ class _Recorder(TorchDispatchMode):
             shape=_shape(t), operands=(), computation=self.comp.name,
             index=0, attributes={"literal": str(index), "path": path},
             op_name=self.scope)
-        instr.bytes_read = float(instr.shape.byte_size)
+        # a buffer binding, not traffic: each kernel that reads it pays for
+        # its own read, a gather for the rows it takes, as the reference's
+        # HLO prices its parameters (`repro/core/fusion_model.py:207-211`)
         self.comp.add(instr)
         self.bind(t, instr.name)
 
@@ -243,9 +267,11 @@ class _Recorder(TorchDispatchMode):
         op_name, path, line = self.where()
         cls = _op_class(func)
         first = flat_out[0]
+        name = _base_name(func)
         instr = Instruction(
-            name=f"v{next(self.counter)}", opcode=_base_name(func),
-            op_class=cls, shape=_shape(first), operands=operands,
+            name=f"v{next(self.counter)}",
+            opcode="gather" if name in _GATHERS else name, op_class=cls,
+            shape=_shape(first), operands=operands,
             computation=self.comp.name, index=0, op_name=op_name,
             source_file=path, source_line=line)
         _annotate(instr, func, flat_in)
@@ -326,6 +352,35 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
         return  # no kernel runs: no bytes move
     instr.bytes_read = float(sum(_shape(t).byte_size for t in inputs))
     instr.bytes_written = float(instr.shape.byte_size)
+    if name in _GATHERS:
+        instr.bytes_read = _gather_bytes(name, inputs, instr.shape.byte_size)
+
+
+def _gather_bytes(name: str, inputs: List[torch.Tensor],
+                  out_bytes: int) -> float:
+    """Bytes a gather reads, by `repro/core/hlo_parser.py:418-434`: the
+    useful bytes (the output's; for `nll_loss_forward` the values picked
+    before the mean, one of `logp`'s elements a target) over `rows`, the
+    elements of the index tensor; rows under 256 bytes read
+    `min(rows * 256, 8 * useful)`; the index bytes are added.  `index`
+    with several index tensors reads them broadcast together, as the HLO's
+    one start-index tensor of `len(indices)` columns."""
+    table, indices = inputs[0], inputs[1:]
+    if name == "nll_loss_forward":
+        indices = indices[:1]  # the targets; a class-weight tensor is not
+        useful = float(indices[0].numel() * table.element_size())
+    else:
+        useful = float(out_bytes)
+    if not indices:
+        return useful
+    elems = 1
+    for dim in torch.broadcast_shapes(*(t.shape for t in indices)):
+        elems *= int(dim)
+    rows = max(1, elems * len(indices))
+    idx_bytes = float(sum(elems * t.element_size() for t in indices))
+    if useful / rows < _GRANULE:
+        useful = min(rows * _GRANULE, _GRANULE_CAP * useful)
+    return useful + idx_bytes
 
 
 _ACTIVE: Optional[_Recorder] = None  # the recorder of the running capture

@@ -59,6 +59,9 @@ SIGNATURES = {
     # a_log, bsel, csel, y, B, S, din, N, stream
     "repro_ssm_scan_fused_fwd": [_INT, _P, _I64, _I64, _P, _P, _P, _P, _P,
                                  _I64, _I64, _I64, _I64, _P],
+    # dtype (xin), N, blocks an SM (out), channels a block (out)
+    "repro_ssm_scan_fused_occupancy": [_INT, _I64, ctypes.POINTER(_INT),
+                                       ctypes.POINTER(_INT)],
     # dtype (q, k, v), q, k, v, log_i, log_f, out, state scratch C, n, m,
     # B, S, H, hd, chunk, passes (1 states, 2 outputs, 3 both), stream
     "repro_mlstm_chunkwise_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -13,15 +13,22 @@ bytes, `(2*B*S*din*N + B*S*N) * itemsize + B*S*din*4` over 3.35 TB/s
 
 `ssm_scan_fused` is the counterpart of what the reference's `ssm_pallas`
 region wraps (`repro/models/ssm.py:84-91`, the fused form's scan marked as
-one kernel region): discretization and scan in one kernel, xin (B,S,din) in
-and y out, `dt = softplus(x * w_dt)`, `a = exp(-exp(a_log) * dt)`,
+one kernel region), so it too replaces the TPU kernel `ssm_scan`:
+discretization and scan in one kernel, xin (B,S,din) in and y out,
+`dt = softplus(x * w_dt)`, `a = exp(-exp(a_log) * dt)`,
 `bx = (dt * x) * bsel`, then the recurrence above.  a and bx never reach
-device memory.  Same file, entry `repro_ssm_scan_fused_fwd`.  Bound on the
-H100: the special-function unit, not the bytes.  At hymba-1.5b's prefill (B
-2, S 2048, din 3200, N 16) the bytes are ~79 MB (xin in bf16, y in f32,
+device memory.  Same file, entry `repro_ssm_scan_fused_fwd`, laid out as
+Mamba's selective scan: a block owns (b, 16 channels) and walks chunks of
+128 steps, a channel's chunk split over 8 threads of 16 consecutive steps,
+joined by a shuffle scan of (A, B) pairs for each state index, the state
+carried from chunk to chunk; y summed over N in registers, dt once a
+(b, t, d), `a` one `ex2.approx`; x, bsel and csel staged in shared memory
+by `cp.async`, y written back through it.  Bound on the H100: the
+special-function unit, not the bytes.  At hymba-1.5b's prefill (B 2, S
+2048, din 3200, N 16) the bytes are ~79 MB (xin in bf16, y in f32,
 bsel/csel), ~0.024 ms at 3.35 TB/s, while the exponentials of `a` alone
 are B*S*din*N = 2.1e8, ~0.05 ms at 16 a clock on each of the 132 SMs at
-1.98 GHz.
+1.98 GHz.  `fused_grid` reports how its grid meets a card.
 
 The plain versions: `ssm_scan_plain`, the exact sequential loop (the port of
 `kernels/ref.py::ssm_scan_ref`), is the kernels' oracle; `ssm_scan_chunked`
@@ -36,6 +43,8 @@ kernel does not take, they raise.  They never fall back.  Each wrapper's
 nothing.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -194,6 +203,12 @@ ssm_scan.launches = 0
 ssm_scan.check = check_ssm_scan
 
 
+# the fused entry's kernel counts steps and channels in 32 bits: the same
+# limit as `csrc/ssm_scan.cu` kFusedMaxS (2^31 - 1 less a chunk of 128),
+# which the C entry checks again, so a drift between the two raises there
+FUSED_MAX_S = 2 ** 31 - 1 - 128
+
+
 def check_ssm_scan_fused(xin: torch.Tensor, w_dt: torch.Tensor,
                          a_log: torch.Tensor, bsel: torch.Tensor,
                          csel: torch.Tensor) -> None:
@@ -228,7 +243,8 @@ def check_ssm_scan_fused(xin: torch.Tensor, w_dt: torch.Tensor,
     if n < 1 or 32 % n:
         raise ValueError(f"ssm_scan_fused: state size N={n} must divide 32 "
                          f"(the lanes of a channel reduce within one warp)")
-    if not 1 <= b <= 65535 or s < 1 or din < 1:
+    if not 1 <= b <= 65535 or not 1 <= s <= FUSED_MAX_S or \
+            not 1 <= din <= FUSED_MAX_S:
         raise ValueError(f"ssm_scan_fused: B={b}, S={s}, din={din} out of "
                          f"range")
 
@@ -239,8 +255,9 @@ def ssm_scan_fused(xin: torch.Tensor, w_dt: torch.Tensor,
     """xin (B,S,din) f32 or bf16, any row strides (the model hands the view
     `xz[..., :din]`); w_dt (din), a_log (din,N), bsel/csel (B,S,N) f32.
 
-    Returns y (B,S,din) f32.  The kernel walks the whole sequence in one
-    loop; its plain version scans chunks of SSM_CHUNK."""
+    Returns y (B,S,din) f32.  The kernel and its plain version both walk
+    the sequence in chunks (the kernel's of 128 steps, the plain version's
+    of SSM_CHUNK), the state carried from chunk to chunk."""
     if all(t.device.type == "cpu" for t in (xin, w_dt, a_log, bsel, csel)):
         return ssm_fused_plain(xin, w_dt, a_log, bsel, csel)
     lib = _build.library()
@@ -259,3 +276,27 @@ def ssm_scan_fused(xin: torch.Tensor, w_dt: torch.Tensor,
 
 ssm_scan_fused.launches = 0
 ssm_scan_fused.check = check_ssm_scan_fused
+
+
+def fused_grid(xin: torch.Tensor, n: int) -> dict:
+    """How the fused entry's grid meets the card for xin (B,S,din) on a
+    CUDA device and state size `n`: blocks of its kernel resident on one
+    SM (the CUDA occupancy calculator's, for the launch's threads and
+    shared memory), the grid's blocks (din / channels a block x B), and
+    the waves, grid blocks over resident blocks on the whole card.
+
+    A diagnostic only: no model path calls it, `chip_smoke.py` phase 3
+    prints it beside the entry's time.  It launches nothing."""
+    blocks, channels = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(xin.device):
+        err = _build.library().repro_ssm_scan_fused_occupancy(
+            _build.DTYPE_CODE[xin.dtype], n, ctypes.byref(blocks),
+            ctypes.byref(channels))
+    _build.check(err, "ssm_scan_fused occupancy")
+    b, _, din = xin.shape
+    grid = b * -(-din // channels.value)
+    sms = torch.cuda.get_device_properties(xin.device).multi_processor_count
+    return {"channels_a_block": channels.value, "blocks_an_sm": blocks.value,
+            "grid_blocks": grid, "sms": sms,
+            "waves": grid / max(1, blocks.value * sms)}
+

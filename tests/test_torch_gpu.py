@@ -323,27 +323,39 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take():
     assert ops.ssm_scan.launches == before
 
 
-def _fused_inputs(b, s, din, n, dtype, device, strided=False):
+def _fused_inputs(b, s, din, n, dtype, device, strided=False, a_log=None):
     """xin (a view of a (B, S, 2 din) tensor when `strided`, as the model
-    hands it), w_dt, a_log = log(1..N), bsel and csel."""
+    hands it), w_dt, a_log = log(1..N) unless given, bsel and csel."""
     gen = torch.Generator(device=device).manual_seed(11)
     xz = torch.randn((b, s, 2 * din if strided else din), generator=gen,
                      device=device).to(getattr(torch, dtype))
     w_dt = torch.randn((din,), generator=gen, device=device)
-    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
-                                   device=device)).expand(din, n).contiguous()
+    if a_log is None:
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=device)).expand(din, n)
+    a_log = a_log.to(device).contiguous()
     bsel = 0.5 * torch.randn((b, s, n), generator=gen, device=device)
     csel = 0.5 * torch.randn((b, s, n), generator=gen, device=device)
     return xz[..., :din], w_dt, a_log, bsel, csel
 
 
+# the kernel stages 128 steps a chunk, 16 channels a block
+# (csrc/ssm_scan.cu kFusedChunk, kFusedChannels): the cases cross both seams
 @pytest.mark.parametrize("s,din,n,strided", [
     (32, 128, 8, False),
     (64, 256, 16, True),
-    (1000, 320, 16, True),  # ragged S, no multiple of a 16-step group
+    (1000, 320, 16, True),  # ragged S, no multiple of a chunk
     (64, 100, 8, False),    # din no multiple of a block's channels
     (40, 64, 32, False),
     (40, 64, 1, True),
+    (1, 64, 16, True),      # one step
+    (127, 64, 16, True),    # a step under a chunk
+    (128, 64, 16, False),   # one whole chunk
+    (129, 64, 16, True),    # a step over a chunk
+    (130, 17, 16, False),   # din one over a channel tile
+    (64, 3201, 16, True),   # hymba's din plus one
+    (200, 72, 4, True),
+    (200, 72, 2, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssm_scan_fused(s, din, n, strided, dtype):
@@ -364,6 +376,28 @@ def test_ssm_scan_fused(s, din, n, strided, dtype):
     _close(out, ops.ssm_fused_plain(xin, w_dt, a_log, bsel, csel),
            (1e-4, 1e-4))
     # a copy of the view gives the same bits
+    assert torch.equal(ops.ssm_scan_fused(xin.contiguous(), w_dt, a_log,
+                                          bsel, csel), out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_fused_carries_the_state_across_chunks(dtype):
+    """S 4096 (32 chunks) with a_log near -4: a = exp(-exp(a_log) dt) is
+    near 1, so the state of the first steps still counts at the last, and
+    every chunk's state must be carried into the next.  Held to the oracle
+    at 1e-4 + 1e-4 |oracle| as `test_ssm_scan_fused`."""
+    from repro_torch.kernels.ssm_scan import discretize
+    dev = _cuda()
+    n, din = 16, 72
+    rng = np.random.default_rng(5)
+    a_log = torch.from_numpy((-4.0 + 0.1 * rng.standard_normal(
+        (din, n))).astype(np.float32))
+    xin, w_dt, a_log, bsel, csel = _fused_inputs(2, 4096, din, n, dtype, dev,
+                                                 True, a_log)
+    out = ops.ssm_scan_fused(xin, w_dt, a_log, bsel, csel)
+    a, bx = discretize(xin, w_dt, a_log, bsel)
+    assert a.median().item() > 0.95  # the state decays slowly
+    _close(out, ops.ssm_scan_plain(a, bx, csel), (1e-4, 1e-4))
     assert torch.equal(ops.ssm_scan_fused(xin.contiguous(), w_dt, a_log,
                                           bsel, csel), out)
 
