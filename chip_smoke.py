@@ -137,7 +137,19 @@ error:
      it, and the fused kernel path against the default one; then each
      form's loss at FUSED_LEO_LAYERS layers timed, captured and diagnosed
      on `nvidia_h100_sxm`, the four cases of the LEO loop held (the fused
-     form's memory term lower, FLOPs within 1%).
+     form's memory term lower, FLOPs within 1%);
+ 20. the dry run (`repro_torch.launch.dryrun`) on the card's own mesh,
+     `make_host_mesh(1)`: `lower_cell` on meta stand-ins for qwen2-0.5b's
+     prefill (B 4 x S 1024), train step (phase 15's) and decode (8 slots
+     of 1024), hymba-1.5b's prefill under the fused SSM form (B 2 x S
+     2048, phase 19's 8 captured layers) and phi3.5-moe's (8 layers, B 4 x
+     S 1024) under `moe_impl="ep_shardmap"`; each held exactly to the real
+     step on the card (argument bytes, the capture of the real tensors,
+     the launches against the kernel regions), its ms, roofline, LEO
+     estimate, peak memory and capture seconds printed; the EP MoE against
+     the global form in bf16 and f32, `sequence_parallel` bit for bit, a
+     leaf of the wrong dtype failing the byte equality; then `run_cell`
+     over every config x shape x production mesh (specs only).
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -147,6 +159,8 @@ with status 1 and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -2797,7 +2811,8 @@ def run_moe_leo(torch, core, cfg, params, loss_fn, layers: int):
     capture_s = time.perf_counter() - t0
     an = core.analyze_module(module, core.get_backend("nvidia_h100_sxm"))
     instructions = list(module.all_instructions())
-    stores = [i for i in instructions if i.opcode == "index_add" and
+    stores = [i for i in instructions
+              if i.attributes.get("aten") == "index_add" and
               i.op_class is core.OpClass.MEMORY_STORE]
     moe_layers = max(0, layers - cfg.first_dense_layers)
     row = {"layers": layers, "instructions": len(instructions),
@@ -3193,6 +3208,309 @@ def run_fused_ssm(torch, ops, core, cfg, flags, make_prefill_step,
             "f32": f32, "leo": diag}
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+# Phase 20: the dry run's cells on the card's own mesh, `make_host_mesh(1)`,
+# each at an earlier phase's size: (arch, layers kept or None, (kind, S,
+# B), model flags).  hymba-1.5b is cut to phase 19's captured depth: a
+# layer records ~3,300 instructions at B 2 x S 2048, and the phase
+# captures each cell twice (the dry run's stand-ins, the real tensors).
+DRY_CELLS = (
+    ("qwen2-0.5b", None, ("prefill", 1024, 4), {}),
+    ("qwen2-0.5b", None, ("train", TRAIN_S, TRAIN_B), {}),
+    ("qwen2-0.5b", None, ("decode", 1024, 8), {}),
+    ("hymba-1.5b", FUSED_LEO_LAYERS, ("prefill", 2048, 2),
+     {"ssm_fused": True, "ssm_pallas": True}),
+    ("phi3.5-moe-42b-a6.6b", 8, ("prefill", SLICE_S, SLICE_B),
+     {"moe_impl": "ep_shardmap"}),
+)
+DRY_BACKEND = "nvidia_h100_sxm"
+# the f32 comparison of the two MoE forms: phi3.5-moe's first layers
+EP_F32_LAYERS = 2
+EP_F32_TOL = 1e-5
+
+
+def real_cell_inputs(torch, cfg, shape, init_params, init_train_state,
+                     init_decode_state):
+    """Real tensors on the card with the structure, shapes and dtypes of
+    `launch/specs.py::input_specs` (weights and batch from seed 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        batch = {"token": torch.randint(0, cfg.vocab_size, (b,),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32),
+                 "pos": torch.tensor(s // 2, dtype=torch.int32,
+                                     device="cuda")}
+    else:
+        batch = {"labels": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+        if cfg.frontend != "none":
+            batch["embeds"] = (0.02 * torch.randn(
+                (b, s, cfg.d_model), generator=gen, device="cuda")).to(
+                    torch.bfloat16)
+        else:
+            batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                            generator=gen, device="cuda",
+                                            dtype=torch.int32)
+    inputs = {"batch": batch}
+    if shape.kind == "train":
+        inputs["state"] = init_train_state(cfg, gen)
+    else:
+        inputs["params"] = init_params(cfg, gen)
+    if shape.kind == "decode":
+        inputs["decode_state"] = init_decode_state(cfg, b, s)
+    return inputs
+
+
+def module_totals(module):
+    instrs = list(module.all_instructions())
+    return {"instructions": len(instrs), "flops": module.total_flops(),
+            "bytes": sum(i.bytes_read + i.bytes_written for i in instrs)}
+
+
+def run_dry_cell(torch, ops, core, dryrun, mesh, mesh_context, flags, cfg,
+                 shape, model_flags, inputs):
+    """One cell: `lower_cell` on the meta stand-ins, then the same step
+    captured from the real tensors and run once on the card with the
+    launch counts zeroed.  Exactly: the dry run's argument bytes are the
+    real arguments' `nbytes`, its Module has the direct capture's
+    instructions, FLOPs and bytes, and its kernel regions are the launches
+    the real step made.  Printed: the step's ms (CUDA events around eager
+    calls), the roofline's and LEO's estimates, the peak memory and the
+    capture seconds."""
+    label = f"{cfg.name}__{shape.name}__host"
+    with flags(**model_flags):
+        module, memory, capture_s = dryrun.lower_cell(cfg, shape, mesh)
+        real_bytes = sum(t.numel() * t.element_size()
+                         for t in _leaves(inputs))
+        step, args = dryrun.cell_program(
+            cfg, shape, inputs, "cuda", dryrun.cell_options(cfg, shape,
+                                                            mesh))
+        with mesh_context(mesh):
+            t0 = time.perf_counter()
+            direct = core.capture(step, *args)
+            direct_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            out = step(*args)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            bodies = dict(ops.flash_attention.body_launches)
+            peak = torch.cuda.max_memory_allocated()
+            ms = call_ms(torch, lambda: step(*args), samples=5, reps=1)
+    dry, real = module_totals(module), module_totals(direct)
+    launched = {k: v for k, v in counts.items() if v}
+    rl = core.compute_roofline(module, core.get_backend(DRY_BACKEND).hw,
+                               chips=1, label=label)
+    t0 = time.perf_counter()
+    an = core.analyze_module(module, core.get_backend(DRY_BACKEND))
+    analyze_s = time.perf_counter() - t0
+    print(f"  {label} ({cfg.n_layers} layers, B{shape.global_batch} "
+          f"S{shape.seq_len}{', ' if model_flags else ''}"
+          f"{', '.join(f'{k}={v}' for k, v in model_flags.items())}): "
+          f"{ms:.3f} ms a step measured; roofline {rl.bound_s * 1e3:.3f} ms "
+          f"({rl.dominant}-bound), LEO {an.estimated_step_seconds * 1e3:.3f} "
+          f"ms; peak memory {peak / 2**30:.3f} GiB; captured in "
+          f"{capture_s:.2f} s (from the real tensors {direct_s:.2f} s), "
+          f"analysed in {analyze_s:.2f} s")
+    print(f"    arguments {memory['argument_size_in_bytes']} bytes (real "
+          f"{real_bytes}), outputs {memory['output_size_in_bytes']}; module "
+          f"{dry} (from the real tensors {real}); kernel regions "
+          f"{module.kernel_calls}, launches {launched}")
+    require(memory["argument_size_in_bytes"] == real_bytes,
+            f"phase 20 {label}: the dry run's argument bytes "
+            f"{memory['argument_size_in_bytes']} are not the real "
+            f"arguments' {real_bytes}")
+    require(dry == real, f"phase 20 {label}: the dry run's module {dry} "
+            f"differs from the capture of the real tensors {real}")
+    require(module.kernel_calls == launched, f"phase 20 {label}: kernel "
+            f"regions {module.kernel_calls}, launches {launched}")
+    require(launched, f"phase 20 {label}: the step launched no kernel")
+    row = {"label": label, "layers": cfg.n_layers, "B": shape.global_batch,
+           "S": shape.seq_len, "flags": model_flags, "memory": memory,
+           "real_argument_bytes": real_bytes, "module": dry,
+           "kernel_regions": module.kernel_calls, "launches": counts,
+           "flash_attention_bodies": bodies, "ms": ms, "peak_bytes": peak,
+           "roofline_s": rl.bound_s, "roofline_dominant": rl.dominant,
+           "leo_s": an.estimated_step_seconds, "capture_s": capture_s,
+           "direct_capture_s": direct_s, "analyze_s": analyze_s}
+    return row, out
+
+
+def routed(torch, moe_module, run):
+    """`run()` with every call of `moe.route` recorded: the expert ids and
+    top-k margins of each MoE layer, in order."""
+    real = moe_module.route
+    calls = []
+
+    def route(*args, **kwargs):
+        r = real(*args, **kwargs)
+        calls.append((r.expert_ids.sort(-1).values, r.margin))
+        return r
+
+    moe_module.route = route
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        moe_module.route = real
+    return out, calls
+
+
+def compare_moe_forms(torch, flags, moe_module, run, dt_name):
+    """`run()` under moe_impl="ep_shardmap" and "global" on the same
+    inputs: the logits' gap and the routing flips of each MoE layer, each
+    flip with the global form's margin."""
+    with flags(moe_impl="ep_shardmap"):
+        ep, ep_calls = routed(torch, moe_module, run)
+    with flags(moe_impl="global"):
+        glob, glob_calls = routed(torch, moe_module, run)
+    require(len(ep_calls) == len(glob_calls) > 0, f"phase 20: "
+            f"{len(ep_calls)} / {len(glob_calls)} MoE layers routed")
+    flips, margins = 0, []
+    for (ids_ep, _), (ids_g, margin) in zip(ep_calls, glob_calls):
+        flip = (ids_ep != ids_g).any(-1)
+        flips += int(flip.sum())
+        margins += margin[flip].tolist()
+    err, scale, _, top1 = logits_gap(ep, glob)
+    print(f"    {dt_name} ep_shardmap vs global: logits max gap {err:.4e} of "
+          f"max|logit| {scale:.3f}, top-1 agreement {top1:.5f}, "
+          f"{flips} routing flips over {len(ep_calls)} MoE layers (margins "
+          f"{[f'{m:.3e}' for m in margins]}), bit for bit "
+          f"{bool(torch.equal(ep, glob))}")
+    return {"dtype": dt_name, "max_abs_err": err, "max_abs_logit": scale,
+            "top1": top1, "flips": flips, "flip_margins": margins,
+            "moe_layers": len(ep_calls), "equal": bool(torch.equal(ep, glob))}
+
+
+def run_dryrun(torch, ops, core, flags, get_config, init_params,
+               init_train_state, init_decode_state, make_prefill_step,
+               moe_module):
+    """Phase 20: the dry run (`launch/dryrun.py`) on the card's own mesh.
+    Each cell of DRY_CELLS through `run_dry_cell`; the EP MoE against the
+    global form (phi3.5-moe: bf16 at the cell's depth, phase 4's rule with
+    every routing flip at a margin within ROUTE_FLOOR; f32 at
+    EP_F32_LAYERS layers within EP_F32_TOL of the largest logit, the
+    routing equal); qwen2-0.5b's prefill under `sequence_parallel` equal
+    bit for bit to the cell's; a dry run handed one leaf of the wrong
+    dtype failing the byte equality; then `run_cell` over every config x
+    its shapes x the production meshes (specs only), the cells that fit
+    the card listed."""
+    from repro_torch.configs import (ALL_ARCHS, LONG_500K, ShapeConfig,
+                                     shapes_for)
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.context import mesh_context
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(1)
+    require(mesh.shape == {"data": 1, "model": 1} and
+            mesh.device.type == "cuda", f"phase 20: host mesh {mesh}")
+    print(f"  host mesh {mesh.shape} on {mesh.devices}")
+    rows, extra = [], {}
+    for arch, layers, (kind, s, b), model_flags in DRY_CELLS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = replace(cfg, n_layers=layers)
+        shape = ShapeConfig(f"{kind}_{b}x{s}", s, b, kind)
+        inputs = real_cell_inputs(torch, cfg, shape, init_params,
+                                  init_train_state, init_decode_state)
+        row, out = run_dry_cell(torch, ops, core, dryrun, mesh,
+                                mesh_context, flags, cfg, shape,
+                                model_flags, inputs)
+        rows.append(row)
+        if arch == ARCH and kind == "prefill":
+            with mesh_context(mesh), flags(sequence_parallel=True):
+                sp = make_prefill_step(cfg)(inputs["params"],
+                                            inputs["batch"])
+            torch.cuda.synchronize()
+            same = bool(torch.equal(sp, out))
+            print(f"    sequence_parallel=True on the host mesh: logits "
+                  f"equal bit for bit {same}")
+            require(same, "phase 20: sequence_parallel moved qwen2-0.5b's "
+                    "prefill logits on a one-device mesh")
+            extra["sequence_parallel_equal"] = same
+        if arch == ARCH and kind == "decode":
+            bad = specs.input_specs(cfg, shape)
+            bad["batch"]["token"] = torch.empty(
+                (shape.global_batch,), dtype=torch.int64, device="meta")
+            _, memory, _ = dryrun.lower_cell(cfg, shape, mesh, inputs=bad)
+            print(f"    fault control: the tokens as int64 in the dry run "
+                  f"give {memory['argument_size_in_bytes']} argument bytes "
+                  f"against {row['real_argument_bytes']} real")
+            require(memory["argument_size_in_bytes"] !=
+                    row["real_argument_bytes"], "phase 20: a dry run with "
+                    "a leaf of the wrong dtype matched the real bytes")
+            extra["fault_argument_bytes"] = memory["argument_size_in_bytes"]
+        if model_flags.get("moe_impl") == "ep_shardmap":
+            prefill = make_prefill_step(cfg)
+            run = lambda: prefill(inputs["params"], inputs["batch"])  # noqa
+            with mesh_context(mesh):
+                bf16 = compare_moe_forms(torch, flags, moe_module, run,
+                                         cfg.dtype)
+            require(bf16["max_abs_err"] <= 2e-2 * bf16["max_abs_logit"] and
+                    bf16["top1"] >= 0.99, f"phase 20: bf16 ep_shardmap vs "
+                    f"global {bf16}")
+            require(all(m <= ROUTE_FLOOR for m in bf16["flip_margins"]),
+                    f"phase 20: bf16 routing flips beyond ROUTE_FLOOR "
+                    f"{bf16['flip_margins']}")
+            inputs = out = run = None
+            torch.cuda.empty_cache()
+            cfg32 = replace(cfg, n_layers=EP_F32_LAYERS, dtype="float32")
+            params32 = init_params(cfg32, torch.Generator(
+                device="cuda").manual_seed(0))
+            batch = slice_inputs(torch, cfg32, SLICE_B, SLICE_S)
+            prefill32 = make_prefill_step(cfg32)
+            run = lambda: prefill32(params32, batch)  # noqa: E731
+            with mesh_context(mesh):
+                f32 = compare_moe_forms(torch, flags, moe_module, run,
+                                        cfg32.dtype)
+            require(f32["max_abs_err"] <= EP_F32_TOL * f32["max_abs_logit"]
+                    and f32["flips"] == 0, f"phase 20: f32 ep_shardmap vs "
+                    f"global {f32}")
+            extra["ep_vs_global"] = {"bfloat16": bf16, "float32": f32}
+            params32 = batch = run = None
+        inputs = out = None
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fits, over, total = [], [], 0
+    with tempfile.TemporaryDirectory(prefix="phase20_") as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        for cfg in ALL_ARCHS:
+            for shape in shapes_for(cfg) + (
+                    () if cfg.supports_long_context else (LONG_500K,)):
+                for mesh_kind in ("single", "multi"):
+                    rec = dryrun.run_cell(cfg.name, shape.name, mesh_kind,
+                                          tmp, hw_name=DRY_BACKEND)
+                    total += 1
+                    require(rec["status"] in ("specs_only", "skipped"),
+                            f"phase 20: {rec.get('label')} "
+                            f"{rec.get('status')}: {rec.get('error')}")
+                    if rec.get("fits"):
+                        fits.append(rec["label"])
+                    elif "fits" in rec:
+                        over.append(rec["label"])
+    sweep_s = time.perf_counter() - t0
+    by_arch = {}
+    for label in fits:
+        arch, shape_name, mesh_kind = label.split("__")
+        by_arch.setdefault(arch, []).append(f"{shape_name}/{mesh_kind}")
+    print(f"  run_cell over {total} cells (every config x its shapes x "
+          f"single, multi; specs only) in {sweep_s:.2f} s: {len(fits)} fit "
+          f"{DRY_BACKEND}'s 80 GB a device: "
+          f"{'; '.join(f'{a}: ' + ' '.join(c) for a, c in by_arch.items())}"
+          f"; {len(over)} do not: {over}")
+    seconds = time.perf_counter() - t_phase
+    return {"cells": rows, **extra,
+            "sweep": {"cells": total, "fit": fits, "over": over,
+                      "seconds": sweep_s},
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -3226,8 +3544,8 @@ def main(argv=None) -> int:
     from repro_torch.models import ssm as ssm_module
     from repro_torch.models import transformer as transformer_module
     from repro_torch.models import xlstm as xlstm_module
-    from repro_torch.models import (forward, init_params, layer_descriptors,
-                                    loss_fn)
+    from repro_torch.models import (forward, init_decode_state, init_params,
+                                    layer_descriptors, loss_fn)
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
     import repro_torch.checkpoint as checkpoint
@@ -3553,6 +3871,15 @@ def main(argv=None) -> int:
     fused_ssm["seconds"] = time.perf_counter() - t0
     print(f"  phase 19: {fused_ssm['seconds']:.1f} s")
 
+    # phase 20
+    print(f"phase 20: the dry run on the card's own mesh "
+          f"(make_host_mesh(1)), each cell captured on meta stand-ins and "
+          f"held to the real step ({smi})")
+    dry = run_dryrun(torch, ops, core, flags, get_config, init_params,
+                     runtime.init_train_state, init_decode_state,
+                     make_prefill_step, moe_module)
+    print(f"  phase 20: {dry['seconds']:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
@@ -3562,7 +3889,7 @@ def main(argv=None) -> int:
                  xserve, trained, driven) + tuple(
                      row[part] for row in sliced.values()
                      for part in ("prefill", "serve")) + tuple(
-                         fused_ssm["bf16"].values())
+                         fused_ssm["bf16"].values()) + tuple(dry["cells"])
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3664,7 +3991,7 @@ def main(argv=None) -> int:
         "xlstm_prefill": xprefill, "xlstm_serve": xserve, "train": trained,
         "train_driver": driven, "upper_tiers": upper,
         "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
-        "slice": sliced, "fused_ssm": fused_ssm,
+        "slice": sliced, "fused_ssm": fused_ssm, "dryrun": dry,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -27,7 +27,12 @@ One `Instruction` per dispatched op, in the single entry computation:
   reference) are recorded with opcode `gather` and class FUSION, each one
   eager kernel on the card, and read the rows they take, each at least a
   256-byte granule and at most 8x the useful bytes, plus their indices
-  (`_gather_bytes`), not their whole table.  A parameter is a buffer
+  (`_gather_bytes`), not their whole table.  Likewise a write of rows at
+  indices (`index_put`, `scatter`, `index_add`, ..., and the embedding's
+  backward) is a `scatter` of class MEMORY_STORE that reads and writes its
+  updates and indices and not its destination (`_scatter_bytes`,
+  `hlo_parser.py:435-442`): a decode step's cache write costs one token,
+  not the cache.  A parameter is a buffer
   binding and moves nothing itself: every op that reads it pays for its
   read (`repro/core/fusion_model.py:207-211`).
 * operands are the tensors the op reads, by identity; an in-place op
@@ -85,9 +90,6 @@ _OP_CLASS = {
     "argmin": OpClass.REDUCE, "cumsum": OpClass.REDUCE,
     "logsumexp": OpClass.REDUCE, "var_mean": OpClass.REDUCE,
     "arange": OpClass.MEMORY_LOAD,
-    "index_put": OpClass.MEMORY_STORE, "_index_put_impl": OpClass.MEMORY_STORE,
-    "scatter": OpClass.MEMORY_STORE, "scatter_add": OpClass.MEMORY_STORE,
-    "index_copy": OpClass.MEMORY_STORE, "index_add": OpClass.MEMORY_STORE,
     "_to_copy": OpClass.DATA_MOVEMENT, "clone": OpClass.DATA_MOVEMENT,
     "copy": OpClass.DATA_MOVEMENT, "cat": OpClass.DATA_MOVEMENT,
     "stack": OpClass.DATA_MOVEMENT, "repeat": OpClass.DATA_MOVEMENT,
@@ -102,11 +104,22 @@ _OP_CLASS = {
 # the reference's compiled program, inside a fusion (an eager kernel here)
 _GATHERS = {"embedding", "index_select", "gather", "index",
             "nll_loss_forward"}
+# aten ops that write rows of a destination at indices: one HLO `scatter`
+# each in the reference's compiled program (a `dynamic-update-slice` where
+# the index is a scalar), class MEMORY_STORE (`repro/core/isa.py:290`).
+# `embedding_dense_backward` is the embedding's gradient, a scatter-add of
+# the output gradient's rows into a zero table in the reference's HLO.
+_SCATTERS = {"index_put", "_index_put_impl", "scatter", "scatter_add",
+             "index_copy", "index_add", "embedding_dense_backward"}
 # `repro/core/hlo_parser.py:427-433`: HBM moves at least a 256-byte granule
 # a gathered row, and a gather of small rows pays at most 8x its useful
 # bytes ("real gathers coalesce partially")
 _GRANULE = 256.0
 _GRANULE_CAP = 8.0
+# the reference's opcode for each gather and scatter; the aten name of a
+# scatter stays in its `aten` attribute
+_OPCODE = {**{n: "gather" for n in _GATHERS},
+           **{n: "scatter" for n in _SCATTERS}}
 
 # 8 FLOPs per element, as `jaxpr_frontend._TRANSCENDENTAL_PRIMS`; the fused
 # softmaxes and SiLU, which jax spells with exp / logistic, count so too.
@@ -142,6 +155,8 @@ def _op_class(func) -> OpClass:
     name = _base_name(func)
     if name in _GATHERS:
         return OpClass.FUSION
+    if name in _SCATTERS:
+        return OpClass.MEMORY_STORE
     return _OP_CLASS.get(name, OpClass.COMPUTE)
 
 
@@ -270,10 +285,12 @@ class _Recorder(TorchDispatchMode):
         name = _base_name(func)
         instr = Instruction(
             name=f"v{next(self.counter)}",
-            opcode="gather" if name in _GATHERS else name, op_class=cls,
+            opcode=_OPCODE.get(name, name), op_class=cls,
             shape=_shape(first), operands=operands,
             computation=self.comp.name, index=0, op_name=op_name,
             source_file=path, source_line=line)
+        if name in _SCATTERS:
+            instr.attributes["aten"] = name
         _annotate(instr, func, flat_in)
         self.comp.add(instr)
         self.bind(first, instr.name)
@@ -354,6 +371,8 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
     instr.bytes_written = float(instr.shape.byte_size)
     if name in _GATHERS:
         instr.bytes_read = _gather_bytes(name, inputs, instr.shape.byte_size)
+    elif name in _SCATTERS:
+        instr.bytes_read = instr.bytes_written = _scatter_bytes(name, inputs)
 
 
 def _gather_bytes(name: str, inputs: List[torch.Tensor],
@@ -381,6 +400,18 @@ def _gather_bytes(name: str, inputs: List[torch.Tensor],
     if useful / rows < _GRANULE:
         useful = min(rows * _GRANULE, _GRANULE_CAP * useful)
     return useful + idx_bytes
+
+
+def _scatter_bytes(name: str, inputs: List[torch.Tensor]) -> float:
+    """Bytes a scatter reads, and writes, by `repro/core/hlo_parser.py:
+    435-442`: its updates' and its indices' bytes, every operand but the
+    destination, which is updated in place and not read (a one-token write
+    into a 32k-deep KV cache costs one token).  `embedding_dense_backward`
+    has no destination operand: the table it writes is the HLO scatter's
+    zero operand, so all its inputs (the output gradient and the indices)
+    are the updates."""
+    updates = inputs if name == "embedding_dense_backward" else inputs[1:]
+    return float(sum(_shape(t).byte_size for t in updates))
 
 
 _ACTIVE: Optional[_Recorder] = None  # the recorder of the running capture

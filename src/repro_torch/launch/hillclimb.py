@@ -6,9 +6,11 @@ rewrites.  `mutation_space`, `whatif_search`, `run_whatif` and
 `run_rewrite` are the reference's, with the package named `repro_torch`.
 
 The reference's other half, `CELLS` and `run_variant` (`--cell`), lowers a
-training cell on a device mesh under the model flags it sets (`ssm_fused`,
-`ssm_pallas`, `attention_impl`); it waits for the port's multi-device
-layer, and `--cell` raises until then.
+training cell on the production device mesh under the model flags it sets
+(`ssm_fused`, `ssm_pallas`, `attention_impl`).  The port's dry run
+(`launch/dryrun.py`) builds a cell's program only on a mesh of one device;
+a production mesh's per-device program waits for process groups, and
+`--cell` raises until then.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --whatif \\
       --backend nvidia_h100_sxm --mode guided --budget 12 --seed 0
@@ -217,7 +219,7 @@ def run_rewrite(backend_name, *, top_k=2, n_copies=48, outdir=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", help="not in the port yet: lowering a cell "
-                    "needs the multi-device layer")
+                    "on the production mesh needs process groups")
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--outdir", default="experiments/perf")
     ap.add_argument("--force", action="store_true")
@@ -255,8 +257,9 @@ def main(argv=None):
         ap.error("--cell is required unless --whatif or --rewrite is given")
     raise NotImplementedError(
         f"--cell {args.cell}: lowering a training cell (the reference's "
-        f"run_variant) needs a device mesh, which the port does not have "
-        f"yet; run --whatif or --rewrite")
+        f"run_variant) needs the production device mesh's per-device "
+        f"program, which the port does not build yet (launch/dryrun.py "
+        f"records such cells specs_only); run --whatif or --rewrite")
 
 
 if __name__ == "__main__":

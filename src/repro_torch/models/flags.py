@@ -1,6 +1,6 @@
 """Model-level switches of the port.
 
-The port's counterpart of `repro.models.flags`.  Four switches:
+The port's counterpart of `repro.models.flags`.  Seven switches:
 
   attention_impl : "kernel" — CUDA tensors go through the flash-attention
                               kernel (K1) in prefill and the loss;
@@ -27,6 +27,28 @@ The port's counterpart of `repro.models.flags`.  Four switches:
                            scan in one kernel, xin in and y out.  As in the
                            reference, it acts only inside the fused branch
                            (`repro/models/ssm.py:84` sits under `:69`).
+  sequence_parallel : False — as the reference's: between blocks the
+                           residual stream is constrained sequence-sharded
+                           over the current mesh's "model" axis
+                           (`transformer.py::_sp_constraint`).  On a mesh
+                           whose "model" axis is 1, the card's own, the
+                           constraint is the identity, as the reference's is
+                           on one device; a mesh with no devices behind it,
+                           or a "model" axis over 1, raises (no partitioner
+                           and no process groups in the port yet).
+  moe_impl       : "global"      — every token of the batch routed together
+                                   (`moe.py::moe_forward`);
+                   "ep_shardmap" — the reference's expert-parallel form:
+                                   each shard of the current mesh routes its
+                                   own tokens and exchanges them with the
+                                   expert shards by two all-to-alls
+                                   (`moe.py::moe_forward_ep`).  Off a mesh,
+                                   or where the "model" axis does not divide
+                                   the experts, it falls back to "global",
+                                   as the reference does.
+  fsdp_threshold_mb : 128 — the per-shard size above which
+                           `parallel/sharding.py` shards a weight over the
+                           data axes (auto-FSDP), as the reference's.
   force_plain    : False — every CUDA tensor goes through the hand-written
                            kernels (flash attention under
                            attention_impl="kernel", the selective scan as
@@ -50,6 +72,7 @@ from dataclasses import dataclass, replace
 
 
 ATTENTION_IMPLS = ("kernel", "plain")
+MOE_IMPLS = ("global", "ep_shardmap")
 
 
 @dataclass(frozen=True)
@@ -57,12 +80,18 @@ class ModelFlags:
     attention_impl: str = "kernel"
     ssm_fused: bool = False
     ssm_pallas: bool = False
+    sequence_parallel: bool = False
+    moe_impl: str = "global"
+    fsdp_threshold_mb: int = 128
     force_plain: bool = False
 
     def __post_init__(self) -> None:
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {self.attention_impl!r} not in "
                              f"{ATTENTION_IMPLS}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {self.moe_impl!r} not in "
+                             f"{MOE_IMPLS}")
 
 
 _FLAGS = ModelFlags()

@@ -22,10 +22,11 @@ alone (T = 1, capacity 8, nothing dropped).  Here the slots are one batched
 product over (G, E, C, D), so the expert weights are read once a layer,
 not once a slot.
 
-The reference's shard_map expert parallelism (`moe_forward_ep`, with its
-per-shard body `_local_dispatch_compute`) needs a mesh; off a mesh it
-falls back to `moe_forward`, which is what one card runs.  It waits for the
-port of `parallel/`.
+`moe_forward_ep` is the reference's shard_map expert parallelism: each
+shard of the current mesh routes its own tokens (`_local_dispatch_compute`)
+and exchanges them with the expert shards by two all-to-alls.  The port
+runs it on a mesh of one device, the card's own, where the all-to-alls
+are the identity; off a mesh it falls back to `moe_forward`.
 """
 from __future__ import annotations
 
@@ -145,56 +146,72 @@ def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dtype))
 
 
-def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (G, T, D), each group routed and dispatched on its own -> (y (G,
-    T, D), aux (G,))."""
+def _dispatch_buffer(x: torch.Tensor, ds: Dispatch, e: int,
+                     cap: int) -> torch.Tensor:
+    """x (G, T, D) -> each expert's capacity buffer (G, E, C, D): every
+    assignment's token added into its expert's buffer row; a dropped one
+    adds zeros to the row its rank was clamped to, as the reference's
+    masked `.at[dest].add`."""
     groups, t, d = x.shape
-    k, e = cfg.top_k, cfg.n_experts
-    cap = _capacity(cfg, t)
-    r = route(p, x, cfg)
-    ds = dispatch(r.expert_ids, cap)
-    # row r of group g is row g * n + r of the groups' rows laid end to
-    # end: the gathers below are `index_select`s of those rows
     rows = torch.arange(groups, device=x.device)[:, None]
-
-    def take(table, n, index):
-        flat = (index + rows.reshape((groups,) + (1,) * (index.ndim - 1))
-                * n).reshape(-1)
-        return table.reshape(-1, d).index_select(0, flat).reshape(
-            index.shape + (d,))
-
-    # every assignment's token added into its expert's buffer row; a
-    # dropped one adds zeros to the row its rank was clamped to, as the
-    # reference's masked `.at[dest].add`
-    xs = take(x, t, ds.tokens)                                # (G, T*k, D)
+    xs = _take(x, t, ds.tokens)                              # (G, T*k, D)
     xs = torch.where(ds.keep[..., None], xs, torch.zeros_like(xs))
     buf = torch.zeros((groups * e * cap, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, (ds.dest + rows * (e * cap)).reshape(-1),
                    xs.reshape(-1, d))
-    out_buf = _experts(p, buf.reshape(groups, e, cap, d))
+    return buf.reshape(groups, e, cap, d)
 
-    # Combine: gather back and weight by gates.
-    sorted_gates = r.gates.reshape(groups, t * k).gather(-1, ds.order)
+
+def _take(table: torch.Tensor, n: int, index: torch.Tensor) -> torch.Tensor:
+    """Rows `index` (G, ...) of each group's n rows of `table` (G, n, ...,
+    D): row r of group g is row g * n + r of the groups' rows laid end to
+    end, so the gather is one `index_select`."""
+    groups, d = table.shape[0], table.shape[-1]
+    rows = torch.arange(groups, device=table.device).reshape(
+        (groups,) + (1,) * (index.ndim - 1))
+    flat = (index + rows * n).reshape(-1)
+    return table.reshape(-1, d).index_select(0, flat).reshape(
+        index.shape + (d,))
+
+
+def _combine(out_buf: torch.Tensor, gates: torch.Tensor, ds: Dispatch,
+             k: int) -> torch.Tensor:
+    """Each token's k expert outputs, gathered back from the buffers
+    out_buf (G, E, C, D) and weighted by their gates (G, T, k) -> y (G, T,
+    D).  A token's k contributions are summed in a fixed order, in the
+    buffers' dtype: by ascending expert id, the order in which the
+    reference's `.at[st].add` meets them in the sorted list (and applies
+    them on the CPU).  An `index_add` of the rows would add them with
+    atomics on the card, in an order, and to bits, that change from run to
+    run."""
+    groups, e, cap, d = out_buf.shape
+    t = gates.shape[1]
+    sorted_gates = gates.reshape(groups, t * k).gather(-1, ds.order)
     weight = torch.where(ds.keep, sorted_gates,
-                         torch.zeros_like(sorted_gates)).to(x.dtype)
-    gathered = take(out_buf, e * cap, ds.dest) * weight[..., None]
-    # Each token's k contributions are summed in a fixed order, in x's
-    # dtype: by ascending expert id, the order in which the reference's
-    # `.at[st].add` meets them in the sorted list (and applies them on the
-    # CPU).  An `index_add` of the rows would add them with atomics on the
-    # card, in an order, and to bits, that change from run to run.  `pos`
-    # is the place of each (token, choice) in the sorted list; sorted per
-    # token, it lists the token's contributions by expert id.
+                         torch.zeros_like(sorted_gates)).to(out_buf.dtype)
+    gathered = _take(out_buf, e * cap, ds.dest) * weight[..., None]
+    # `pos` is the place of each (token, choice) in the sorted list; sorted
+    # per token, it lists the token's contributions by expert id
     pos = torch.empty_like(ds.order).scatter_(
-        -1, ds.order, torch.arange(t * k, device=x.device).expand(
+        -1, ds.order, torch.arange(t * k, device=out_buf.device).expand(
             groups, t * k))
     pos = torch.sort(pos.reshape(groups, t, k), dim=-1).values
-    parts = take(gathered, t * k, pos)                        # (G, T, k, D)
+    parts = _take(gathered, t * k, pos)                      # (G, T, k, D)
     y = parts[:, :, 0]
     for j in range(1, k):
         y = y + parts[:, :, j]
+    return y
 
+
+def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (G, T, D), each group routed and dispatched on its own -> (y (G,
+    T, D), aux (G,))."""
+    cap = _capacity(cfg, x.shape[1])
+    r = route(p, x, cfg)
+    ds = dispatch(r.expert_ids, cap)
+    buf = _dispatch_buffer(x, ds, cfg.n_experts, cap)
+    y = _combine(_experts(p, buf), r.gates, ds, cfg.top_k)
     if "shared" in p:
         y = y + mlp(x, p["shared"])
     return y, r.aux
@@ -216,3 +233,77 @@ def moe_forward_slots(p: Params, x: torch.Tensor, cfg: ArchConfig
     y, _ = moe_groups(p, x[:, None], cfg)
     return y[:, 0]
 
+
+# -- expert parallelism (the reference's shard_map form) -----------------------
+
+def _all_to_all(buf: torch.Tensor, tp: int, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """`jax.lax.all_to_all(buf, "model", split_axis, concat_axis,
+    tiled=True)` over a "model" axis of `tp` devices: `buf` split into tp
+    parts along `split_axis`, part j sent to device j, the parts received
+    laid end to end along `concat_axis`.  On one device that is `buf`
+    itself; more needs `torch.distributed` process groups, which the port
+    has not yet."""
+    if tp != 1:
+        raise NotImplementedError(
+            f"all_to_all over a 'model' axis of {tp} devices needs "
+            f"torch.distributed process groups, a later slice of the port")
+    return buf
+
+
+def _local_dispatch_compute(p: Params, xf: torch.Tensor, cfg: ArchConfig,
+                            tp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard body: local routing, all-to-all to expert shards, batched
+    expert FFN with *stationary* weights, all-to-all back, local combine.
+
+    xf: local tokens (T_l, D); the expert weights in `p` are the local
+    shard (E / tp, D, ff) of a "model" axis of `tp` devices.  Wire traffic
+    per device = 2 x the dispatch buffer (~capacity_factor * k * T_l * D
+    elements) instead of the global sort's.  Returns (y (T_l, D), aux)."""
+    cap = _capacity(cfg, xf.shape[0])
+    r = route(p, xf[None], cfg)
+    ds = dispatch(r.expert_ids, cap)                 # local sort only
+    buf = _dispatch_buffer(xf[None], ds, cfg.n_experts, cap)[0]
+    # dispatch: (E, C_l, D) -> (E_local, tp*C_l, D) on the owning shard
+    buf = _all_to_all(buf, tp, split_axis=0, concat_axis=1)
+    out_buf = _experts(p, buf[None])[0]
+    # return: (E_local, tp*C_l, D) -> (E, C_l, D) back on the token shards
+    out_buf = _all_to_all(out_buf, tp, split_axis=1, concat_axis=0)
+    y = _combine(out_buf[None], r.gates, ds, cfg.top_k)[0]
+    return y, r.aux[0]
+
+
+def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the current mesh (`parallel/context.py`):
+    routing stays shard-local, expert weights stay stationary, the only
+    collectives are two all-to-alls along the "model" axis.  Off a mesh,
+    or where the "model" axis does not divide the experts, it falls back
+    to `moe_forward`, as the reference does.
+
+    The port runs the per-shard body where the mesh is one device (the
+    card's own `make_host_mesh()`, `(1, 1)`): the data shards' mean of the
+    aux loss and both all-to-alls are then the identity.  A mesh with no
+    devices behind it raises (no partitioner writes its per-device
+    program), and so does a mesh of more than one device (no process
+    groups yet)."""
+    from ..parallel.context import get_current_mesh
+
+    mesh = get_current_mesh()
+    if mesh is None or "model" not in mesh.axis_names or \
+            cfg.n_experts % mesh.shape["model"] != 0:
+        return moe_forward(p, x, cfg)
+    if mesh.devices is None:
+        raise RuntimeError(
+            f"moe_forward_ep: the {mesh.shape} mesh has no devices behind "
+            f"it; with no partitioner its per-device program is not built")
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"moe_forward_ep on a {mesh.shape} mesh needs torch.distributed "
+            f"process groups, a later slice of the port")
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    y, aux = _local_dispatch_compute(p, xf, cfg, mesh.shape["model"])
+    if "shared" in p:
+        y = y + mlp(xf, p["shared"])
+    return y.reshape(b, s, d), aux

@@ -219,18 +219,51 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
 REMATS = ("none", "group", "full", "group_save_moe")
 
 
+def _sp_constraint(x: torch.Tensor) -> torch.Tensor:
+    """Megatron-style sequence parallelism, as the reference's: between
+    blocks the residual stream lives sequence-sharded over "model", so the
+    row-parallel projections' all-reduces decompose into reduce-scatter
+    (+ all-gather at the next consumer).  The identity unless
+    `flags.sequence_parallel` is set and the current mesh has a "model"
+    axis dividing the sequence.  On a mesh of one device, the card's own,
+    the shard is the whole stream, as the reference's constraint is on one
+    device; a mesh with no devices behind it raises (there is no
+    partitioner to shard it), and so does a mesh of more than one device
+    (no process groups yet)."""
+    if not get_flags().sequence_parallel:
+        return x
+    from ..parallel.context import get_current_mesh
+    mesh = get_current_mesh()
+    if mesh is None or "model" not in mesh.axis_names or \
+            x.ndim != 3 or x.shape[1] % mesh.shape["model"] != 0:
+        return x
+    if mesh.devices is None:
+        raise RuntimeError(
+            f"sequence_parallel: the {mesh.shape} mesh has no devices "
+            f"behind it; with no partitioner nothing is sharded over it")
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"sequence_parallel on a {mesh.shape} mesh needs "
+            f"torch.distributed process groups, a later slice of the port")
+    return x
+
+
 def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
            cfg: ArchConfig, positions: torch.Tensor,
            chunk: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One full-sequence layer.  Returns (x, aux_loss), aux_loss None
     unless the FFN is a MoE."""
+    x = _sp_constraint(x)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + _mixer(p, h, mixer, cfg, positions, chunk)
     aux = None
     if ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         if ffn == "moe":
-            y, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
+            moe_forward = moe_mod.moe_forward_ep if \
+                get_flags().moe_impl == "ep_shardmap" else \
+                moe_mod.moe_forward
+            y, aux = moe_forward(p["ffn"], h, cfg)
         else:
             y = mlp(h, p["ffn"])
         x = x + y

@@ -90,8 +90,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig = AdamWConfig(),
         tracked = [p.detach().requires_grad_() for p in leaves]
         loss = loss_fn(spec.unflatten(tracked), cfg, batch,
                        chunk=options.chunk, remat=options.remat)
-        grads = torch.autograd.grad(loss, tracked)
-        return loss.detach(), spec.unflatten(list(grads))
+        # a leaf the loss does not read (the embedding table of a config
+        # fed embeddings) has a zero gradient, as `jax.grad` gives it
+        grads = torch.autograd.grad(loss, tracked, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(tracked, grads)]
+        return loss.detach(), spec.unflatten(grads)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:

@@ -928,3 +928,48 @@ def test_train_driver_launches_the_kernels_every_step(tmp_path):
     assert counts["rmsnorm_pipelined"] == 2 * (4 * cfg.n_layers + 1)
     res = main(args + ["--steps", "3", "--restore"])
     assert res["steps"] == 1 and res["history"][0]["step"] == 2
+
+
+# -- the card's own mesh (launch/mesh.py, parallel/, launch/dryrun.py) --------
+
+def test_host_mesh_on_the_card():
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = _cuda()
+    mesh = make_host_mesh()
+    n = torch.cuda.device_count()
+    assert mesh.shape == {"data": n, "model": 1}
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(n))
+    if n == 1:
+        assert mesh.device == torch.device(dev.type, 0)
+    with pytest.raises(ValueError, match="does not divide"):
+        make_host_mesh(n + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_forward_ep_is_moe_forward_on_the_card(dtype):
+    """phi3.5-moe's smoke config on the card's (1, 1) mesh: the per-shard
+    body equals the global form bit for bit (the same products, and the
+    combine in ascending expert id in both), run after run, on 2048 tokens
+    of which the capacity drops some."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.context import mesh_context
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config(
+        "phi3.5-moe-42b-a6.6b")), dtype=dtype)
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    gi = next(i for i, g in enumerate(params["groups"])
+              if "router" in g.get("ffn", {}))
+    p = {k: v[0] for k, v in params["groups"][gi]["ffn"].items()}
+    gen = torch.Generator(dev).manual_seed(1)
+    base = torch.randn((cfg.d_model,), generator=gen, device=dev)
+    x = (base + 0.1 * torch.randn((4, 512, cfg.d_model), generator=gen,
+                                  device=dev)).to(getattr(torch, dtype))
+    glob, glob_aux = moe.moe_forward(p, x, cfg)
+    r = moe.route(p, x.reshape(1, -1, cfg.d_model), cfg)
+    keep = moe.dispatch(r.expert_ids, moe._capacity(cfg, 2048)).keep
+    assert not bool(keep.all())
+    with mesh_context(make_host_mesh(1)):
+        for _ in range(3):
+            y, aux = moe.moe_forward_ep(p, x, cfg)
+            assert torch.equal(y, glob) and torch.equal(aux, glob_aux)

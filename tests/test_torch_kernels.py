@@ -42,10 +42,30 @@ def _inputs(seed, shapes, dtype_name):
             [torch.from_numpy(a).to(tdt) for a in arrays])
 
 
-def _close(port, expect, tol):
+def _close(port, expect, tol, err_msg=""):
     np.testing.assert_allclose(port.float().numpy(),
                                np.asarray(expect, np.float32),
-                               atol=tol, rtol=tol)
+                               atol=tol, rtol=tol, err_msg=err_msg)
+
+
+def _numeric_state() -> str:
+    """The process-wide settings an earlier test in the same worker could
+    have left behind that move an f32 result: torch's float32 matmul
+    precision (on a CPU with AMX, "medium" runs f32 products in bf16 and
+    moves this file's attention by ~3e-3), its default dtype and threads,
+    both packages' model flags and current meshes, JAX's devices."""
+    import jax
+    from repro.models import flags as j_flags
+    from repro.parallel import context as j_context
+    from repro_torch.models import flags as t_flags
+    from repro_torch.parallel import context as t_context
+    return (f"worker state: torch matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}, default dtype "
+            f"{torch.get_default_dtype()}, threads {torch.get_num_threads()}"
+            f"; flags {j_flags.get_flags()} / {t_flags.get_flags()}; meshes "
+            f"{j_context.get_current_mesh()} / "
+            f"{t_context.get_current_mesh()}; jax devices "
+            f"{len(jax.devices())}")
 
 
 class TestFlashAttentionPlain:
@@ -90,10 +110,12 @@ class TestFlashAttentionPlain:
         (jq, jk, jv), (tq, tk, tv) = _inputs(
             3, [(2, 128, 4, 32), (2, 128, 2, 32), (2, 128, 2, 32)],
             "float32")
+        state = _numeric_state()
         out = t_chunked(tq, tk, tv, chunk=32, window=window)
-        _close(out, j_chunked(jq, jk, jv, chunk=32, window=window), 2e-5)
+        _close(out, j_chunked(jq, jk, jv, chunk=32, window=window), 2e-5,
+               state)
         _close(out, tops.flash_attention_plain(tq, tk, tv, window=window),
-               2e-5)
+               2e-5, state)
 
 
 class TestRmsnormPlain:

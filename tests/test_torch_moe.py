@@ -259,8 +259,12 @@ def test_only_moe_layers_give_an_aux_loss(monkeypatch):
 # -- the capture ---------------------------------------------------------------
 
 def _scatter_adds(module, names):
+    """The instructions of `module` named in `names`: by opcode in the
+    reference, by aten name in the port, whose capture records every
+    scatter with the reference's opcode `scatter`."""
     return [i for comp in module.computations.values()
-            for i in comp.instructions if i.opcode in names]
+            for i in comp.instructions
+            if i.attributes.get("aten", i.opcode) in names]
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

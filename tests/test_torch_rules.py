@@ -163,10 +163,56 @@ print("BAD", bad)
     assert "BAD []" in res.stdout, res.stdout
 
 
+# the multi-device layer and the dry run
+MESH_TIERS = ["parallel/__init__.py", "parallel/context.py",
+              "parallel/sharding.py", "launch/mesh.py", "launch/specs.py",
+              "launch/dryrun.py"]
+
+
+def test_no_jax_or_reference_in_the_dry_run(tmp_path):
+    """Sweep the dry run over every config, shape and production mesh,
+    lower a smoke cell on the CPU's own mesh with `--analyze`, and run the
+    expert-parallel MoE and sequence parallelism on it, in a fresh
+    interpreter, and look at what got imported."""
+    code = f"""
+import sys, torch
+from repro_torch.launch import dryrun
+try:
+    dryrun.main(["--arch", "all", "--shape", "all", "--mesh", "both",
+                 "--outdir", {str(tmp_path)!r}])
+except SystemExit as e:
+    assert e.code == 0
+from repro_torch.configs import ShapeConfig, get_config, smoke_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import forward, init_params
+from repro_torch.models.flags import flags
+from repro_torch.parallel.context import mesh_context
+cfg = smoke_config(get_config("phi3.5-moe-42b-a6.6b"))
+mesh = make_host_mesh(1, device="cpu")
+with flags(moe_impl="ep_shardmap", sequence_parallel=True):
+    module, memory, _ = dryrun.lower_cell(
+        cfg, ShapeConfig("p", 32, 2, "prefill"), mesh)
+    assert module.total_flops() > 0 and memory["argument_size_in_bytes"]
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with mesh_context(mesh), torch.no_grad():
+        assert forward(params, cfg, torch.zeros((1, 8), dtype=torch.long)
+                       )[0].isfinite().all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
 def test_no_forbidden_import_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {PORT / m for m in DRIVER_MODULES + UPPER_TIERS} <= set(files)
+    assert {PORT / m for m in DRIVER_MODULES + UPPER_TIERS + MESH_TIERS} \
+        <= set(files)
     for path in files:
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, (path, bad)
