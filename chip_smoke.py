@@ -149,7 +149,23 @@ error:
      estimate, peak memory and capture seconds printed; the EP MoE against
      the global form in bf16 and f32, `sequence_parallel` bit for bit, a
      leaf of the wrong dtype failing the byte equality; then `run_cell`
-     over every config x shape x production mesh (specs only).
+     over every config x shape x production mesh (specs only);
+ 21. hillclimb's training cells (`launch/hillclimb.py::run_variant`) on
+     the card's own mesh: qwen2-0.5b's five variants at full width and
+     depth and hymba-1.5b's at phase 19's 8 layers, B 8 x S 1024 on the
+     reference's single-pod micro-batch counts (2, 4), each captured in
+     one of 7 spawned processes (the micro-batch loop one `while`),
+     rooflined and diagnosed on
+     nvidia_h100_sxm, then run once with the counters zeroed (regions,
+     counted trip-aware, equal to the launches; ms a step by CUDA events
+     beside the roofline's bound and LEO's estimate); each variant's loss
+     and gradient norm within 3x the right paths' spread of the forced-plain
+     baseline, two faults outside (the loop summing its first trip only,
+     K1's band one key off); qwen2's flash_attention captured with the
+     loop and unrolled, FLOPs, bytes and regions equal; deepseek-v2's
+     five variants captured only (4 layers, 2 trips of train_4k's
+     one-row micro-batch), `save_moe`'s FLOPs between `remat_none`'s and
+     `ep+flash`'s.  One `{"hillclimb": [...]}` line lists every variant.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -3511,6 +3527,464 @@ def run_dryrun(torch, ops, core, flags, get_config, init_params,
             "seconds": seconds}
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+# Phase 21: hillclimb's training cells (`launch/hillclimb.py::CELLS`) on the
+# card's own mesh, each variant through `run_variant` (the capture with the
+# micro-batch loop as one `while`, the roofline, LEO's estimate on
+# HILL_BACKEND), then run on the card.  qwen2 at full width and depth and
+# hymba at full width cut to phase 19's 8 layers run at B 8 x S 1024, cut
+# from train_4k's B 256 x S 4096, on the reference's single-pod micro-batch
+# count `default_microbatch(cfg, 256, 4096, dp=16)` (2 and 4) unless the
+# variant sets its own.  deepseek-v2 is captured only, at phase 18's 4
+# layers and train_4k's shape on one device (256 micro-batches of one
+# 4096-token row, one `while`): a MoE train step at a depth with a MoE
+# layer does not fit the card.  A capture is host work (nothing runs on the
+# card) and costs two trips of its loop whatever the trip count: 8-60 s a
+# variant at these sizes on one H100's host, 703 s in all; so the captures
+# run in HILL_WORKERS spawned processes together, before the real steps.
+HILL_B, HILL_S = 8, 1024
+HILL_CELLS = (("qwen2", None), ("hymba", FUSED_LEO_LAYERS))
+HILL_DP = 16  # the data-parallel size of the reference's single-pod mesh
+HILL_DSV2_LAYERS = 4
+HILL_BACKEND = "nvidia_h100_sxm"
+HILL_WORKERS = 7  # the card host has 8 cores; one is the main process's
+# host seconds a capture takes a layer a trip, by cell, to start the
+# longest first (measured on one H100 host, phase 21 alone)
+HILL_LAYER_TRIP_S = {"qwen2": 1.0, "hymba": 3.4, "dsv2": 6.2}
+# The agreement rule, phase 15's: f32, one step of each path from the
+# weights and batch of seed 0, its gradients as the step hands them to the
+# clip (`steps.clip_by_global_norm`: summed over the micro-batches and
+# divided, cast where the variant casts), a path's gap the largest, over
+# the param leaves, of the relative L2 gap of the leaf's gradient from the
+# truth's.  The truth is the cell's baseline with every op on its plain path
+# (`force_plain`).  The right paths run no kernel under test: each variant's
+# twin (its flags and options under `force_plain`: the other micro-batch
+# counts, the other remat, hymba's fused SSM form), the truth with the
+# attention's chunk HILL_CHUNK in place of 512, and the truth with K1's plain
+# version (full-matrix attention) in place of the chunked one.  A variant
+# may be at most HILL_FACTOR times the largest gap of the right paths of its
+# gradient dtype (bf16 gradients against the twins that cast theirs).  Two
+# known faults on the cell's first K1 variant must fall outside the limit,
+# in both cells: the micro-batch loop summing only its first trip
+# (`steps.loop` replaced) and K1 with its causal band one key off.  The
+# factor is phase 15's (GRAD_FACTOR).
+HILL_FACTOR = GRAD_FACTOR
+HILL_CHUNK = 256
+
+
+def first_trip_loop(torch):
+    """A known fault for phase 21's rule: the micro-batch loop runs its
+    first trip only, as if the later trips' losses and gradients were
+    zero."""
+    from torch.utils._pytree import tree_map
+
+    def loop(body, carry, xs):
+        return body(carry, tree_map(lambda x: x[0], xs))
+    return loop
+
+
+def full_matrix_attention(flash_attention_plain):
+    """K1's plain version at the plain attention's call site
+    (`attention.chunked_attention`), a right path of phase 21's rule."""
+    def attention(q, k, v, chunk=512, window=None):
+        return flash_attention_plain(q, k, v, causal=True, window=window)
+    return attention
+
+
+def hill_shape(b, s):
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig(f"train_{b}x{s}", s, b, "train")
+
+
+def hill_micro(arch):
+    """The reference's micro-batch count of `arch`'s train_4k cell on its
+    single-pod mesh."""
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.runtime import default_microbatch
+    return default_microbatch(get_config(arch), TRAIN_4K.global_batch,
+                              TRAIN_4K.seq_len, HILL_DP)
+
+
+def hill_unrolled(microbatch):
+    """qwen2-0.5b's flash_attention variant at phase 21's shape captured
+    with the loop switched off: its totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline import _trip_aware_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.flags import flags
+    from repro_torch.runtime import TrainOptions
+
+    with flags(attention_impl="kernel"):
+        module, _, secs = dryrun.lower_cell(
+            get_config("qwen2-0.5b"), hill_shape(HILL_B, HILL_S),
+            make_host_mesh(1), opts=TrainOptions(microbatch=microbatch),
+            loops=False)
+    return {"instructions": sum(1 for _ in module.all_instructions()),
+            "hlo_flops": module.total_flops(),
+            "hlo_bytes": _trip_aware_bytes(module),
+            "kernel_regions": module.kernel_calls,
+            "whiles": [i.trip_count for i in module.all_instructions()
+                       if i.opcode == "while"], "capture_s": secs}
+
+
+def hill_captures(hillclimb, outdir):
+    """Every capture of phase 21 in HILL_WORKERS spawned processes (the
+    main process holds the card's context), the longest first: by key,
+    (cell, variant) -> `run_variant`'s record, ("loop", "unrolled") -> the
+    unrolled capture's totals."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import get_config
+    jobs = []  # (host seconds expected, key, fn, kwargs)
+    for cell, layers in HILL_CELLS + (("dsv2", HILL_DSV2_LAYERS),):
+        spec = hillclimb.CELLS[cell]
+        dsv2 = cell == "dsv2"
+        micro = hill_micro(spec["arch"])
+        for name, model_flags, overrides in spec["variants"]:
+            cfg = get_config(spec["arch"])
+            kwargs = dict(arch=spec["arch"], shape_name="train_4k" if dsv2
+                          else hill_shape(HILL_B, HILL_S), name=name,
+                          model_flags=model_flags, opt_overrides=overrides if
+                          dsv2 else {"microbatch": micro, **overrides},
+                          mesh_kind="host", outdir=str(outdir / cell),
+                          hw_name=HILL_BACKEND, analyze=not dsv2,
+                          force=True, layers=layers)
+            trips = 2 if dsv2 or overrides.get("microbatch", micro) > 1 else 1
+            jobs.append(((layers or cfg.n_layers) * trips *
+                         HILL_LAYER_TRIP_S[cell], (cell, name),
+                         hillclimb.run_variant, kwargs))
+    jobs.append((24 * 2 * HILL_LAYER_TRIP_S["qwen2"], ("loop", "unrolled"),
+                 hill_unrolled,
+                 {"microbatch": hill_micro("qwen2-0.5b")}))
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=HILL_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {key: pool.submit(fn, **kwargs) for _, key, fn, kwargs in
+                   sorted(jobs, key=lambda job: -job[0])}
+        out = {key: f.result() for key, f in futures.items()}
+    seconds = time.perf_counter() - t0
+    busy = sum(r.get("compile_seconds", r.get("capture_s", 0.0))
+               for r in out.values())
+    print(f"  {len(jobs)} captures in {HILL_WORKERS} processes: "
+          f"{seconds:.1f} s of wall time, {busy:.1f} s of capture in all")
+    return out, seconds
+
+
+def hill_step(torch, ops, dryrun, flags, mesh, mesh_context, cfg, shape,
+              model_flags, opts, make_inputs, patches=(), timed=0,
+              steps_module=None):
+    """One real train step of a variant on the card from seed 0's state and
+    batch (the step updates its state in place, so each run makes its
+    own), the launch counts zeroed just before it and read just after;
+    then `timed` more steps, each timed with CUDA events.  `patches` are
+    (module, name, value) set for the run.  With `steps_module`, the row
+    keeps the gradients the step hands to the clip, flattened, in f32, and
+    their leaves' names."""
+    from torch.utils._pytree import tree_flatten_with_path
+    inputs = make_inputs(cfg, shape)
+    step, args = dryrun.cell_program(cfg, shape, inputs, "cuda", opts)
+    grads, leaves = [], []
+    if steps_module is not None:
+        clip = steps_module.clip_by_global_norm
+
+        def keeping_clip(tree, max_norm):
+            for path, g in tree_flatten_with_path(tree)[0]:
+                grads.append(g.float())
+                leaves.append("/".join(str(getattr(
+                    k, "key", getattr(k, "idx", k))) for k in path))
+            return clip(tree, max_norm)
+        patches = tuple(patches) + (
+            (steps_module, "clip_by_global_norm", keeping_clip),)
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, v in patches:
+        setattr(m, n, v)
+    try:
+        with flags(**model_flags), mesh_context(mesh):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            _, metrics = step(*args)
+            torch.cuda.synchronize()
+            row = {"loss": metrics["loss"].item(),
+                   "grad_norm": metrics["grad_norm"].item(),
+                   "launches": ops.launch_counts(),
+                   "flash_attention_bodies": dict(
+                       ops.flash_attention.body_launches),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            times = []
+            for _ in range(timed):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(*args)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+    if times:
+        row["ms"] = statistics.median(times)
+    if steps_module is not None:
+        row["grads"], row["leaves"] = grads, leaves
+    require(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+            f"phase 21 {cfg.name}: loss {row['loss']} or grad_norm "
+            f"{row['grad_norm']} not finite")
+    return row
+
+
+def hill_gap(grads, truth):
+    """(the largest relative L2 gap over the leaves, that leaf's index)."""
+    gaps = []
+    for g, t in zip(grads, truth):
+        diff, norm = (g - t).norm().item(), t.norm().item()
+        gaps.append(diff / norm if norm else (0.0 if not diff else math.inf))
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    return gaps[worst], worst
+
+
+def run_hill_cell(torch, ops, dryrun, hillclimb, flags, mesh, mesh_context,
+                  cell, layers, records, make_inputs, attention_module,
+                  steps_module):
+    """One cell of phase 21 (qwen2 or hymba): each variant's record from
+    `run_variant`, then its real bf16 step and one step timed (the regions,
+    counted trip-aware, equal to the launches; ms a step beside the
+    roofline's bound and LEO's estimate), then the f32 agreement rule
+    (HILL_FACTOR) with its faults."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TrainOptions
+
+    spec = hillclimb.CELLS[cell]
+    full = get_config(spec["arch"])
+    cfg = replace(full, n_layers=layers) if layers else full
+    shape = hill_shape(HILL_B, HILL_S)
+    micro = hill_micro(spec["arch"])
+    rows = []
+    for name, model_flags, overrides in spec["variants"]:
+        rec = records[(cell, name)]
+        opts = TrainOptions(**{"microbatch": micro, **overrides})
+        real = hill_step(torch, ops, dryrun, flags, mesh, mesh_context, cfg,
+                         shape, model_flags, opts, make_inputs, timed=1)
+        launched = {k: v for k, v in real["launches"].items() if v}
+        rl = rec["roofline"]
+        row = {"cell": cell, "variant": name, "flags": model_flags,
+               "options": overrides, "layers": cfg.n_layers,
+               "B": HILL_B, "S": HILL_S, "microbatch": rec["microbatch"],
+               "capture_s": rec["compile_seconds"],
+               "instructions": rec["instructions"],
+               "kernel_regions": rec["kernel_regions"],
+               "roofline_ms": rl["bound_s"] * 1e3,
+               "roofline_dominant": rl["dominant"],
+               "hlo_flops": rl["hlo_flops"], "hlo_bytes": rl["hlo_bytes"],
+               "leo_ms": rec["leo"]["estimated_step_seconds"] * 1e3,
+               **real}
+        print(f"  {cell} {name} ({cfg.n_layers} layers, B{HILL_B} S{HILL_S}, "
+              f"{rec['microbatch']} micro-batches): {real['ms']:.3f} ms a "
+              f"step measured; roofline {row['roofline_ms']:.3f} ms "
+              f"({rl['dominant']}-bound), LEO {row['leo_ms']:.3f} ms on "
+              f"{HILL_BACKEND}; {rec['instructions']} instructions captured "
+              f"in {rec['compile_seconds']:.2f} s; loss {real['loss']:.6f}, "
+              f"grad_norm {real['grad_norm']:.6f}; regions "
+              f"{rec['kernel_regions']}, launches {launched}; peak "
+              f"{real['peak_bytes'] / 2**30:.3f} GiB")
+        require(rec["kernel_regions"] == launched, f"phase 21 {cell} {name}: "
+                f"kernel regions {rec['kernel_regions']}, launches "
+                f"{launched}")
+        require(launched, f"phase 21 {cell} {name}: no kernel launched")
+        rows.append(row)
+
+    # the agreement rule, in f32: the truth, the right paths, the variants,
+    # the faults
+    cfg32 = replace(cfg, dtype="float32")
+    variants = {name: (f, o) for name, f, o in spec["variants"]}
+    base_flags, base_opts = variants["baseline"]
+    k1_name = next(name for name, (f, _) in variants.items()
+                   if f.get("attention_impl") == "kernel")
+
+    def run(model_flags, overrides, patches=()):
+        opts = TrainOptions(**{"microbatch": micro, **overrides})
+        return hill_step(torch, ops, dryrun, flags, mesh, mesh_context,
+                         cfg32, shape, model_flags, opts, make_inputs,
+                         patches, steps_module=steps_module)
+
+    def plain(model_flags):
+        return {**model_flags, "force_plain": True}
+
+    def dtype(overrides):
+        return overrides.get("grad_dtype", "f32")
+
+    truth = run(plain(base_flags), base_opts)
+    truth_grads, leaves = truth.pop("grads"), truth["leaves"]
+    right = {}  # name -> its gradient dtype, gap, worst leaf, loss, norm
+
+    def keep(table, name, row, grad_dtype):
+        gap, worst = hill_gap(row.pop("grads"), truth_grads)
+        table[name] = {"grad_dtype": grad_dtype, "gap": gap,
+                       "leaf": leaves[worst], "loss": row["loss"],
+                       "grad_norm": row["grad_norm"]}
+        torch.cuda.empty_cache()
+
+    for name, (f, o) in variants.items():
+        if name != "baseline":
+            keep(right, f"twin {name}", run(plain(f), o), dtype(o))
+    keep(right, f"chunk {HILL_CHUNK}", run(plain(base_flags), {
+        **base_opts, "chunk": HILL_CHUNK}), "f32")
+    keep(right, "k1_plain_version", run(plain(base_flags), base_opts, (
+        (attention_module, "chunked_attention",
+         full_matrix_attention(ops.flash_attention_plain)),)), "f32")
+    spread = {}
+    for r in right.values():
+        spread[r["grad_dtype"]] = max(spread.get(r["grad_dtype"], 0.0),
+                                      r["gap"])
+    limit = {d: HILL_FACTOR * v for d, v in spread.items()}
+    checked = {}
+    for name, (f, o) in variants.items():
+        keep(checked, name, run(f, o), dtype(o))
+    k1_flags, k1_over = variants[k1_name]
+    faults = {}
+    keep(faults, "first_trip_only", run(k1_flags, k1_over, (
+        (steps_module, "loop", first_trip_loop(torch)),)), dtype(k1_over))
+    keep(faults, "band_one_key_off", run(k1_flags, k1_over, (
+        (attention_module, "flash_attention",
+         shifted_keys_attention(ops.flash_attention)),)), dtype(k1_over))
+    del truth_grads
+    torch.cuda.empty_cache()
+
+    print(f"  {cell} agreement, f32, {len(leaves)} leaves: truth (baseline, "
+          f"force_plain) loss {truth['loss']:.6f}, grad_norm "
+          f"{truth['grad_norm']:.6f}; limits {HILL_FACTOR:g}x the right "
+          f"paths: " + ", ".join(f"{d} {v:.3e}" for d, v in limit.items()))
+    for kind, table in (("right path", right), ("variant", checked),
+                        ("fault", faults)):
+        for name, r in table.items():
+            print(f"    {kind} {name} ({r['grad_dtype']} gradients): gap "
+                  f"{r['gap']:.3e} at {r['leaf']}, loss {r['loss']:.6f}")
+    for name, r in checked.items():
+        require(r["gap"] <= limit[r["grad_dtype"]],
+                f"phase 21 {cell} {name}: gradient gap {r['gap']} at "
+                f"{r['leaf']} beyond {limit[r['grad_dtype']]}")
+    for name, r in faults.items():
+        require(r["gap"] > limit[r["grad_dtype"]],
+                f"phase 21 {cell}: the fault {name} moves the gradients by "
+                f"{r['gap']}, within {limit[r['grad_dtype']]}: the rule "
+                f"cannot see it")
+    for row in rows:
+        row["gap"] = checked[row["variant"]]["gap"]
+    return {"cell": cell, "arch": spec["arch"], "layers": cfg.n_layers,
+            "microbatch": micro, "variants": rows,
+            "truth": {"loss": truth["loss"], "grad_norm": truth["grad_norm"],
+                      "leaves": len(leaves)},
+            "right": right, "spread": spread, "limit": limit,
+            "checked": checked, "faults": faults}
+
+
+def check_loop_region(records):
+    """Loop body against unrolled: qwen2's flash_attention variant at the
+    phase's shape, its `run_variant` capture (the loop one `while`)
+    against the capture with the loop switched off; the trip-aware FLOPs,
+    bytes and kernel regions equal exactly."""
+    a, b = records[("qwen2", "flash_attention")], records[("loop",
+                                                           "unrolled")]
+    looped = {"instructions": a["instructions"],
+              "hlo_flops": a["roofline"]["hlo_flops"],
+              "hlo_bytes": a["roofline"]["hlo_bytes"],
+              "kernel_regions": a["kernel_regions"],
+              "capture_s": a["compile_seconds"]}
+    print(f"  loop body against unrolled (qwen2-0.5b flash_attention, "
+          f"{a['microbatch']} micro-batches): {looped['instructions']} "
+          f"against {b['instructions']} instructions, captured in "
+          f"{looped['capture_s']:.2f} / {b['capture_s']:.2f} s; FLOPs "
+          f"{looped['hlo_flops']:.6e} / {b['hlo_flops']:.6e}, bytes "
+          f"{looped['hlo_bytes']:.6e} / {b['hlo_bytes']:.6e}; regions "
+          f"{looped['kernel_regions']} / {b['kernel_regions']}")
+    require(not b["whiles"], f"phase 21: the unrolled capture holds whiles "
+            f"{b['whiles']}")
+    require(all(looped[k] == b[k] for k in ("hlo_flops", "hlo_bytes",
+                                            "kernel_regions")),
+            f"phase 21: the loop's module {looped} is not the unrolled one's "
+            f"{b}")
+    return {"looped": looped, "unrolled": b}
+
+
+def check_hill_dsv2(hillclimb, records):
+    """deepseek-v2's five variants captured only: the trip-aware FLOPs of
+    `ep+flash+save_moe` no more than `ep+flash`'s and no less than
+    `ep+flash+remat_none`'s."""
+    rows = {}
+    for name, _, _ in hillclimb.CELLS["dsv2"]["variants"]:
+        rec = records[("dsv2", name)]
+        rl = rec["roofline"]
+        rows[name] = {"flops": rl["hlo_flops"], "bytes": rl["hlo_bytes"],
+                      "capture_s": rec["compile_seconds"],
+                      "instructions": rec["instructions"],
+                      "microbatch": rec["microbatch"],
+                      "kernel_regions": rec["kernel_regions"],
+                      "argument_bytes": rec["memory"][
+                          "argument_size_in_bytes"]}
+        print(f"  dsv2 {name} ({HILL_DSV2_LAYERS} layers, "
+              f"train_4k, {rec['microbatch']} micro-batches, "
+              f"captured only): {rl['hlo_flops']:.6e} FLOPs, "
+              f"{rl['hlo_bytes']:.6e} bytes, {rec['instructions']} "
+              f"instructions captured in {rec['compile_seconds']:.2f} s; "
+              f"regions {rec['kernel_regions']}")
+    save = rows["ep+flash+save_moe"]["flops"]
+    require(rows["ep+flash+remat_none"]["flops"] <= save <=
+            rows["ep+flash"]["flops"], f"phase 21 dsv2: save_moe FLOPs {save} "
+            f"outside [remat_none {rows['ep+flash+remat_none']['flops']}, "
+            f"group {rows['ep+flash']['flops']}]")
+    return {"layers": HILL_DSV2_LAYERS, "B": 256, "S": 4096,
+            "variants": rows}
+
+
+def run_hillclimb(torch, ops, flags, init_params, init_train_state,
+                  init_decode_state, attention_module):
+    """Phase 21: every capture (`hill_captures`), then the qwen2 and hymba
+    cells on the card (`run_hill_cell`), the loop region against the
+    unrolled capture (`check_loop_region`) and the dsv2 captures
+    (`check_hill_dsv2`), on `make_host_mesh(1)`."""
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.context import mesh_context
+    import repro_torch.runtime.steps as steps_module
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(1)
+
+    def make_inputs(cfg, shape):
+        return real_cell_inputs(torch, cfg, shape, init_params,
+                                init_train_state, init_decode_state)
+
+    with tempfile.TemporaryDirectory(prefix="phase21_") as tmp:
+        records, capture_wall = hill_captures(hillclimb, Path(tmp))
+    cells = {}
+    for cell, layers in HILL_CELLS:
+        t0 = time.perf_counter()
+        cells[cell] = run_hill_cell(
+            torch, ops, dryrun, hillclimb, flags, mesh, mesh_context, cell,
+            layers, records, make_inputs, attention_module, steps_module)
+        cells[cell]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    loop_region = check_loop_region(records)
+    dsv2 = check_hill_dsv2(hillclimb, records)
+    table = [{k: row[k] for k in ("cell", "variant", "layers", "microbatch",
+                                  "ms", "roofline_ms", "leo_ms", "capture_s",
+                                  "loss", "grad_norm", "kernel_regions")}
+             for c in cells.values() for row in c["variants"]]
+    table += [{"cell": "dsv2", "variant": name, "layers": HILL_DSV2_LAYERS,
+               "microbatch": row["microbatch"], "flops": row["flops"],
+               "capture_s": row["capture_s"]}
+              for name, row in dsv2["variants"].items()]
+    print(json.dumps({"hillclimb": table}))
+    return {"cells": cells, "loop_region": loop_region, "dsv2": dsv2,
+            "capture_wall_s": capture_wall, "table": table,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -3880,6 +4354,15 @@ def main(argv=None) -> int:
                      make_prefill_step, moe_module)
     print(f"  phase 20: {dry['seconds']:.1f} s")
 
+    # phase 21
+    print(f"phase 21: hillclimb's training cells on the card's own mesh "
+          f"(qwen2, hymba run; dsv2 captured), the micro-batch loop one "
+          f"while ({smi})")
+    hill = run_hillclimb(torch, ops, flags, init_params,
+                         runtime.init_train_state, init_decode_state,
+                         attention_module)
+    print(f"  phase 21: {hill['seconds']:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
@@ -3889,7 +4372,8 @@ def main(argv=None) -> int:
                  xserve, trained, driven) + tuple(
                      row[part] for row in sliced.values()
                      for part in ("prefill", "serve")) + tuple(
-                         fused_ssm["bf16"].values()) + tuple(dry["cells"])
+                         fused_ssm["bf16"].values()) + tuple(dry["cells"]) + \
+        tuple(row for c in hill["cells"].values() for row in c["variants"])
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3992,6 +4476,7 @@ def main(argv=None) -> int:
         "train_driver": driven, "upper_tiers": upper,
         "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
         "slice": sliced, "fused_ssm": fused_ssm, "dryrun": dry,
+        "hillclimb": hill,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -54,10 +54,34 @@ One `Instruction` per dispatched op, in the single entry computation:
   (`kernels/autograd.py`).
 
 Python loops (the model's layers, the attention's key blocks) are unrolled
-in the capture, so every trip count is 1.
+in the capture, with one exception: a loop written with `loop` (the train
+step's micro-batches, the reference's `lax.scan`) is captured as the
+reference's HLO holds a scan, one `while` instruction in the calling
+computation whose `trip_count` is the number of trips and whose body, a
+computation of kind `loop_body`, holds the first trip.  The body reads one
+tuple parameter through `get-tuple-element`s and ends in a `tuple`, slot
+for slot: the carry first (the body's result is the next trip's carry),
+then every value from outside the loop that a trip reads (passed through
+unchanged).  The `while` takes the `tuple` of the slots' first values, and
+what follows the loop reads the last carry through `get-tuple-element`s of
+the `while`: the layout `core/cfg.py` and `core/depgraph.py` follow across
+the back edge.  The second trip runs, and is checked and not recorded: the
+same ops in the same order, on the same shapes and dtypes, reading the
+same values (an op of the same trip, a carry slot or the same value from
+outside), or the capture raises.  The later trips do not run: a trip is
+a function of the carry and its slice of `xs` alone, so a second trip
+that repeats the first's program, the carry it returns included, hands
+the third the same inputs the second had, and so on.  A body must
+therefore not read Python state that changes from trip to trip (a
+counter, a list it appends to); the check sees such state only where it
+changes the second trip.  A capture costs two trips, whatever the trip
+count.  Trip-aware FLOPs and bytes
+(`Module.total_flops`, `roofline._trip_aware_bytes`) and `kernel_calls`
+then equal the unrolled capture's (`capture(..., loops=False)`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import sys
@@ -66,7 +90,10 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.overrides import TorchFunctionMode
+from torch.overrides import (
+    TorchFunctionMode,
+    _get_current_function_mode_stack,
+)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
@@ -196,18 +223,91 @@ def _stack() -> List[Tuple[str, int, str]]:
     return frames
 
 
-class _Recorder(TorchDispatchMode):
-    """Appends one Instruction per dispatched op to `comp`."""
+def _meta(t: torch.Tensor) -> Tuple[torch.dtype, Tuple[int, ...]]:
+    return t.dtype, tuple(t.shape)
 
-    def __init__(self, comp: Computation, scope: str):
+
+class _Trip:
+    """What one trip of a `loop` did, in a form another trip's can be
+    compared with: each op (its overload, the kernel region it runs in,
+    where each value it reads comes from, its outputs' dtypes and shapes)
+    and where each leaf of the carry it returns comes from.  A value comes
+    from ("op", k, j), output j of the trip's op k; ("carry", c), slot c of
+    the carry the trip was handed; or ("outer", name), the value of that
+    name outside the loop (None: a value of no name, such as one an
+    earlier trip made)."""
+
+    def __init__(self, carry: List[torch.Tensor], outer: Dict[int, str],
+                 recording: bool):
+        self.outer = outer
+        self.recording = recording
+        self.ids: Dict[int, Tuple] = {}
+        self.keep: List[torch.Tensor] = list(carry)  # ids stay unique
+        self.ops: List[Tuple] = []
+        for c, t in enumerate(carry):
+            self.ids.setdefault(id(t), ("carry", c))
+
+    def source(self, t: torch.Tensor) -> Tuple:
+        return self.ids.get(id(t)) or ("outer", self.outer.get(id(t)))
+
+    def see(self, func, inputs: List[torch.Tensor],
+            outputs: List[torch.Tensor], kernel: Optional[str]) -> None:
+        k = len(self.ops)
+        self.ops.append((str(func), kernel,
+                         tuple(self.source(t) for t in inputs),
+                         tuple(_meta(o) for o in outputs)))
+        for j, o in enumerate(outputs):
+            self.ids[id(o)] = ("op", k, j)
+        self.keep.extend(outputs)
+
+    def result(self, carry: List[torch.Tensor]) -> Tuple:
+        return (self.ops, [(self.source(t), _meta(t)) for t in carry])
+
+
+def _difference(first: Tuple, other: Tuple) -> str:
+    """Where a later trip's record differs from the first trip's."""
+    (ops0, out0), (ops, out) = first, other
+    for k, (a, b) in enumerate(zip(ops0, ops)):
+        if a != b:
+            return f"op {k} is {b}, in the first trip {a}"
+    if len(ops0) != len(ops):
+        return f"{len(ops)} ops, in the first trip {len(ops0)}"
+    return f"the carry it returns is {out}, in the first trip {out0}"
+
+
+class _Body:
+    """The loop body being recorded (the first trip): its computation,
+    its tuple parameter, and for each slot of the state the name of its
+    first value outside the loop, its shape and its `get-tuple-element`."""
+
+    def __init__(self, comp: Computation, param: Instruction,
+                 outer: Tuple[Computation, Dict[int, str]]):
+        self.comp = comp
+        self.param = param
+        self.outer = outer
+        self.inits: List[str] = []
+        self.shapes: List[ShapeInfo] = []
+        self.gtes: List[str] = []
+
+
+class _Recorder(TorchDispatchMode):
+    """Appends one Instruction per dispatched op to `comp` (to a loop
+    body's computation while `loop` records its first trip)."""
+
+    def __init__(self, module: Module, comp: Computation, scope: str,
+                 loops: bool = True):
         super().__init__()
+        self.module = module
         self.comp = comp
         self.scope = scope
+        self.loops = loops
         self.names: Dict[int, str] = {}
         self.keep: List[torch.Tensor] = []  # ids stay unique while alive
         self.counter = itertools.count()
         self.open_region: Optional[Tuple[int, str]] = None  # (depth, name)
         self.kernel_calls: Dict[str, int] = {}
+        self.body: Optional[_Body] = None
+        self.trip: Optional[_Trip] = None
 
     # -- naming -----------------------------------------------------------
 
@@ -229,15 +329,47 @@ class _Recorder(TorchDispatchMode):
 
     def name_of(self, t: torch.Tensor) -> str:
         """The SSA name of `t`; a tensor no recorded op made (a constant
-        closed over by the program) becomes a constant here."""
+        closed over by the program) becomes a constant here.  In a loop
+        body, a value from outside the loop becomes a slot of the body's
+        state."""
         if id(t) not in self.names:
-            instr = Instruction(
-                name=f"k{next(self.counter)}", opcode="constant",
-                op_class=OpClass.CONSTANT, shape=_shape(t), operands=(),
-                computation=self.comp.name, index=0, op_name=self.scope)
-            self.comp.add(instr)
-            self.bind(t, instr.name)
+            if self.body is not None:
+                self.bind(t, self.slot(t, self.outer_name(t)))
+            else:
+                self.bind(t, self.constant(self.comp, t))
         return self.names[id(t)]
+
+    def constant(self, comp: Computation, t: torch.Tensor) -> str:
+        instr = Instruction(
+            name=f"k{next(self.counter)}", opcode="constant",
+            op_class=OpClass.CONSTANT, shape=_shape(t), operands=(),
+            computation=comp.name, index=0, op_name=self.scope)
+        comp.add(instr)
+        return instr.name
+
+    def outer_name(self, t: torch.Tensor) -> str:
+        """The name of `t` outside the loop being recorded."""
+        comp, names = self.body.outer
+        if id(t) not in names:
+            names[id(t)] = self.constant(comp, t)
+            self.keep.append(t)
+        return names[id(t)]
+
+    def slot(self, t: torch.Tensor, init: str) -> str:
+        """A new slot of the loop body's state, first `init` (a name
+        outside the loop): its `get-tuple-element` in the body."""
+        body = self.body
+        gte = Instruction(
+            name=f"v{next(self.counter)}", opcode="get-tuple-element",
+            op_class=OpClass.TUPLE, shape=_shape(t),
+            operands=(body.param.name,), computation=body.comp.name,
+            index=0, attributes={"index": str(len(body.inits))},
+            op_name=self.scope)
+        body.comp.add(gte)
+        body.inits.append(init)
+        body.shapes.append(_shape(t))
+        body.gtes.append(gte.name)
+        return gte.name
 
     # -- attribution ------------------------------------------------------
 
@@ -278,6 +410,10 @@ class _Recorder(TorchDispatchMode):
                     if isinstance(o, torch.Tensor)]
         if not flat_out:
             return  # a query (`prim.device`, a size): no tensor, no kernel
+        trip = self.trip
+        if trip is not None and not trip.recording:
+            trip.see(func, flat_in, flat_out, self.open_kernel())
+            return
         operands = tuple(self.name_of(t) for t in flat_in)
         op_name, path, line = self.where()
         cls = _op_class(func)
@@ -302,6 +438,102 @@ class _Recorder(TorchDispatchMode):
                 index=0, attributes={"index": str(i)}, op_name=op_name)
             self.comp.add(alias)
             self.bind(extra, alias.name)
+        if trip is not None:
+            trip.see(func, flat_in, flat_out, self.open_kernel())
+
+    def open_kernel(self) -> Optional[str]:
+        return None if self.open_region is None else self.open_region[1]
+
+    # -- loops ------------------------------------------------------------
+
+    def loop(self, body_fn: Callable, carry, xs, trips: int):
+        """`loop` under the capture: the first trip recorded into a loop
+        body, one `while` of `trip_count` `trips` here, the second trip run
+        and checked against the first (the module's docstring)."""
+        carry_in, spec = tree_flatten(carry)
+        if not all(isinstance(t, torch.Tensor) for t in carry_in):
+            raise TypeError("loop: every leaf of the carry must be a tensor")
+        op_name, path, line = self.where()
+        before = dict(self.kernel_calls)
+        outer = (self.comp, self.names)
+        comp = Computation(
+            name=f"c{len(self.module.computations)}_loop_body",
+            kind="loop_body")
+        self.module.add_computation(comp)
+        param = Instruction(
+            name=f"v{next(self.counter)}", opcode="parameter",
+            op_class=OpClass.PARAMETER, shape=ShapeInfo(), operands=(),
+            computation=comp.name, index=0, attributes={"literal": "0"},
+            op_name=self.scope)
+        comp.add(param)
+        body = self.body = _Body(comp, param, outer)
+        self.comp, self.names = comp, {}
+        try:
+            for t in carry_in:
+                self.bind(t, self.slot(t, self.outer_name(t)))
+            self.trip = _Trip(carry_in, outer[1], recording=True)
+            out = body_fn(carry, tree_map(lambda x: x[0], xs))
+            carry_out, out_spec = tree_flatten(out)
+            if out_spec != spec or [_meta(t) for t in carry_out] != \
+                    [_meta(t) for t in carry_in]:
+                raise RuntimeError(
+                    f"loop: a trip takes a carry of {spec} "
+                    f"{[_meta(t) for t in carry_in]} and returns "
+                    f"{out_spec} {[_meta(t) for t in carry_out]}")
+            first = self.trip.result(carry_out)
+            one_trip = {k: n - before.get(k, 0)
+                        for k, n in self.kernel_calls.items()}
+            results = [self.name_of(t) for t in carry_out]
+            state = ShapeInfo(elements=tuple(body.shapes))
+            param.shape = state
+            root = Instruction(
+                name=f"v{next(self.counter)}", opcode="tuple",
+                op_class=OpClass.TUPLE, shape=state,
+                operands=tuple(results) + tuple(body.gtes[len(results):]),
+                computation=comp.name, index=0, op_name=self.scope,
+                is_root=True)
+            comp.add(root)
+        finally:
+            self.comp, self.names = outer
+            self.body = self.trip = None
+        init = Instruction(
+            name=f"v{next(self.counter)}", opcode="tuple",
+            op_class=OpClass.TUPLE, shape=state, operands=tuple(body.inits),
+            computation=self.comp.name, index=0, op_name=op_name)
+        self.comp.add(init)
+        while_ = Instruction(
+            name=f"v{next(self.counter)}", opcode="while",
+            op_class=OpClass.CONTROL, shape=state, operands=(init.name,),
+            computation=self.comp.name, index=0, op_name=op_name,
+            source_file=path, source_line=line,
+            attributes={"body": comp.name}, called_computations=(comp.name,),
+            trip_count=trips)
+        self.comp.add(while_)
+        comp.parent_op = while_.qualified_name
+        if trips > 1:
+            try:
+                self.trip = _Trip(carry_out, self.names, recording=False)
+                out = body_fn(out, tree_map(lambda x: x[1], xs))
+                carry_out = tree_flatten(out)[0]
+                seen = self.trip.result(carry_out)
+                if seen != first:
+                    raise RuntimeError(
+                        f"loop: trip 1 of {trips} is not the first trip's "
+                        f"program ({_difference(first, seen)}); the "
+                        f"capture records one body for every trip")
+            finally:
+                self.trip = None
+        self.kernel_calls = {k: before.get(k, 0) + trips * one_trip.get(k, 0)
+                             for k in set(before) | set(one_trip)}
+        for c, t in enumerate(carry_out):
+            gte = Instruction(
+                name=f"v{next(self.counter)}", opcode="get-tuple-element",
+                op_class=OpClass.TUPLE, shape=_shape(t),
+                operands=(while_.name,), computation=self.comp.name, index=0,
+                attributes={"index": str(c)}, op_name=op_name)
+            self.comp.add(gte)
+            self.bind(t, gte.name)
+        return out
 
 
 class _Functions(TorchFunctionMode):
@@ -444,16 +676,58 @@ def kernel_call(kernel: Callable, *args, plain_fn: Callable[..., Any],
     return kernel(*args, **kwargs)
 
 
+def capture_functions():
+    """The capture's Python-level rewrites (`_Functions`) around code that
+    a checkpoint runs again in the backward: the autograd engine carries
+    no torch function mode into its recomputation, which would otherwise
+    index through PyTorch's C++ path and dispatch other views than the
+    forward did (a slice over a whole axis is `alias` there, `slice`
+    here; a selective checkpoint refuses the difference).  Outside a
+    capture, or where the rewrites are on, nothing."""
+    if _ACTIVE is None or any(isinstance(m, _Functions)
+                              for m in _get_current_function_mode_stack()):
+        return contextlib.nullcontext()
+    return _Functions()
+
+
+def loop(body: Callable, carry, xs):
+    """The last carry of `carry = body(carry, x)` over the trips i = 0, ...,
+    n - 1, x being `xs` (a nest of tensors sharing a leading axis of n)
+    taken at i: the reference's `lax.scan(body, carry, xs)` with nothing
+    collected a trip.  Every leaf of the carry is a tensor, of the same
+    shape and dtype after each trip.
+
+    A Python loop, except under `capture(..., loops=True)` (the default)
+    and outside another loop's trip: there the loop is one `while` whose
+    body holds the first trip, the second trip is checked against it and
+    the later trips do not run (the module's docstring), so `body` must
+    not read Python state that changes from trip to trip."""
+    leaves = tree_flatten(xs)[0]
+    trips = int(leaves[0].shape[0]) if leaves else 0
+    if any(int(x.shape[0]) != trips for x in leaves):
+        raise ValueError(f"loop: the leaves of xs have leading axes "
+                         f"{[int(x.shape[0]) for x in leaves]}, not one "
+                         f"number of trips")
+    if _ACTIVE is not None and _ACTIVE.loops and _ACTIVE.trip is None \
+            and trips > 0:
+        return _ACTIVE.loop(body, carry, xs, trips)
+    for i in range(trips):
+        carry = body(carry, tree_map(lambda x: x[i], xs))
+    return carry
+
+
 def capture(fn: Callable, *args, name: Optional[str] = None,
-            device=None) -> Module:
+            device=None, loops: bool = True) -> Module:
     """Capture `fn(*args)` into a `Module`.
 
     `args` may be nests of dicts, lists and tuples; their tensors (real,
     on any device) are replaced by fake tensors of the same shape and dtype
     (moved to `device` when given, so a CUDA program is captured from CPU
     tensors: `device="cuda"` needs no card).  Nothing runs on a device.
-    The returned module's `kernel_calls` counts the regions of each hand
-    kernel ({"flash_attention": 24, ...})."""
+    A `loop` is one `while` unless `loops` is False, which records every
+    trip in line.  The returned module's `kernel_calls` counts the regions
+    of each hand kernel the program runs, a loop body's once a trip
+    ({"flash_attention": 24, ...})."""
     name = name or getattr(fn, "__name__", "fn")
     module = Module(name=name, source="torch")
     comp = Computation(name="c0_entry", kind="entry")
@@ -470,7 +744,7 @@ def capture(fn: Callable, *args, name: Optional[str] = None,
 
     with fake_mode:
         fargs = tree_map(fake, args)
-    recorder = _Recorder(comp, name)
+    recorder = _Recorder(module, comp, name, loops)
     index = 0
     for path, leaf in _leaves(fargs):
         if isinstance(leaf, torch.Tensor):

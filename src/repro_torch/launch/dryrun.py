@@ -115,12 +115,13 @@ def cell_options(cfg, shape, mesh):
         cfg, shape.global_batch, shape.seq_len, dp))
 
 
-def lower_cell(cfg, shape, mesh, opts=None, inputs=None):
+def lower_cell(cfg, shape, mesh, opts=None, inputs=None, loops=True):
     """Capture one (arch, shape, mesh) cell on a mesh whose devices exist.
     Returns (module, memory, seconds): the captured `Module`, the memory
     record (per-device argument and output bytes; temp and code sizes
     None) and the seconds the capture took.  `inputs` replaces
-    `specs.input_specs(cfg, shape)`."""
+    `specs.input_specs(cfg, shape)`; `loops=False` records the train
+    step's micro-batches trip by trip instead of as one `while`."""
     from ..core import capture
     from ..parallel.context import mesh_context
     from . import specs as S
@@ -147,7 +148,7 @@ def lower_cell(cfg, shape, mesh, opts=None, inputs=None):
     t0 = time.time()
     with mesh_context(mesh):
         module = capture(traced, *args, name=f"{shape.kind}_step",
-                         device=mesh.device)
+                         device=mesh.device, loops=loops)
     secs = time.time() - t0
     out_bytes = sum(t.numel() * t.element_size()
                     for t in tree_leaves(outputs[0])

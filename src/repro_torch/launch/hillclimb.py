@@ -1,27 +1,177 @@
-"""The model-only half of the hillclimb driver (the port of
-`repro.launch.hillclimb`): a **what-if search** that climbs the advisor's
-mutation space without lowering or running anything, and the **rewrite**
-loop that lowers the advisor's top advice to equivalence-checked HLO
-rewrites.  `mutation_space`, `whatif_search`, `run_whatif` and
-`run_rewrite` are the reference's, with the package named `repro_torch`.
+"""§Perf hillclimb driver (the port of `repro.launch.hillclimb`): capture
+one training cell under a sequence of optimization variants and record the
+roofline terms and LEO's diagnosis of each, plus the model-only **what-if
+search** that climbs the advisor's mutation space without capturing
+anything, and the **rewrite** loop that lowers the advisor's top advice to
+equivalence-checked HLO rewrites.  `mutation_space`, `whatif_search`,
+`run_whatif` and `run_rewrite` are the reference's, with the package named
+`repro_torch`.
 
-The reference's other half, `CELLS` and `run_variant` (`--cell`), lowers a
-training cell on the production device mesh under the model flags it sets
-(`ssm_fused`, `ssm_pallas`, `attention_impl`).  The port's dry run
-(`launch/dryrun.py`) builds a cell's program only on a mesh of one device;
-a production mesh's per-device program waits for process groups, and
-`--cell` raises until then.
+Each variant is (name, model flags, TrainOptions overrides): `CELLS` holds
+the reference's three cells and fifteen variants with the port's flag
+values, "kernel" for the reference's "pallas_fused" attention (K1) and
+"plain" for its "xla".  The port's default attention is "kernel", so a
+variant that leaves the reference's attention unset sets "plain".  The
+port's unfused SSM form runs K4's first entry (`ssm_scan`) on CUDA tensors
+(`models/flags.py`, `ssm_fused`), so hymba's `baseline` and `ssm_fused`
+hold one fused region a layer where the reference's unfused form holds
+none; the cells mirror the reference's flags all the same.
 
+`run_variant` captures a variant with `launch/dryrun.py::lower_cell` on
+the card's own mesh (`--mesh host`, `make_host_mesh(1)`: the step on meta
+stand-ins, the train step's micro-batches one `while` of their trip count,
+`core/torch_frontend.loop`).  On the production meshes (`single`,
+`multi`) there is no per-device program without process groups, and the
+record is `dryrun.specs_only`'s.  Results land in
+experiments/perf/<arch>__<shape>__<variant>.json.
+
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell qwen2 \\
+      --mesh host --backend nvidia_h100_sxm
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell dsv2 \\
+      --mesh host --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --whatif \\
       --backend nvidia_h100_sxm --mode guided --budget 12 --seed 0
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --rewrite \\
       --backend nvidia_h100_sxm
 """
 import argparse
+import dataclasses
 import json
 import os
 import random
 import time
+
+
+CELLS = {
+    "qwen2": {
+        "arch": "qwen2-0.5b", "shape": "train_4k",
+        "variants": [
+            ("baseline", {"attention_impl": "plain"}, {}),
+            ("flash_attention", {"attention_impl": "kernel"}, {}),
+            ("flash+microbatch1",
+             {"attention_impl": "kernel"}, {"microbatch": 1}),
+            ("flash+mb1+remat_none",
+             {"attention_impl": "kernel"},
+             {"microbatch": 1, "remat": "none"}),
+            ("flash+mb1+bf16grads",
+             {"attention_impl": "kernel"},
+             {"microbatch": 1, "grad_dtype": "bf16"}),
+        ],
+    },
+    "hymba": {
+        "arch": "hymba-1.5b", "shape": "train_4k",
+        "variants": [
+            ("baseline", {"attention_impl": "plain"}, {}),
+            ("ssm_fused", {"ssm_fused": True, "attention_impl": "plain"}, {}),
+            ("ssm_fused+flash",
+             {"ssm_fused": True, "attention_impl": "kernel"}, {}),
+            ("ssm+flash+mb2",
+             {"ssm_fused": True, "attention_impl": "kernel"},
+             {"microbatch": 2}),
+            ("ssm_pallas+flash",
+             {"ssm_fused": True, "ssm_pallas": True,
+              "attention_impl": "kernel"}, {}),
+        ],
+    },
+    "dsv2": {
+        "arch": "deepseek-v2-236b", "shape": "train_4k",
+        "variants": [
+            ("baseline", {"attention_impl": "plain"}, {}),
+            ("ep_shardmap",
+             {"moe_impl": "ep_shardmap", "attention_impl": "plain"}, {}),
+            ("ep+flash",
+             {"moe_impl": "ep_shardmap", "attention_impl": "kernel"}, {}),
+            ("ep+flash+remat_none",
+             {"moe_impl": "ep_shardmap", "attention_impl": "kernel"},
+             {"remat": "none"}),
+            ("ep+flash+save_moe",
+             {"moe_impl": "ep_shardmap", "attention_impl": "kernel"},
+             {"remat": "group_save_moe"}),
+        ],
+    },
+}
+
+
+def run_variant(arch, shape_name, name, model_flags, opt_overrides,
+                mesh_kind, outdir, hw_name="tpu_v5e", analyze=True,
+                force=False, device="cuda", layers=None):
+    """One variant's record, written to `<outdir>/<label>.json` (read back
+    unless `force`).  `mesh_kind` "host" captures the step on the card's
+    own mesh (`device`'s); "single" and "multi" record `specs_only`.
+    `arch` names a config of `configs` (or is an `ArchConfig`, such as a
+    smoke config, whose name goes into the label); `shape_name` names a
+    shape (or is a `ShapeConfig`); `layers` cuts the config's depth, and
+    the record's `reduced` says so.  The train options are the variant's
+    overrides on the reference's micro-batch count, `default_microbatch`
+    of the uncut config on the mesh's data-parallel size.  The record is
+    the reference's (`compile_seconds` the capture's) plus `memory` as
+    `run_cell` writes it, `microbatch`, `kernel_regions` (each hand
+    kernel's regions in the step, a loop body's once a trip) and
+    `instructions` (the captured Module's)."""
+    from ..configs import ShapeConfig, get_config, get_shape, model_flops
+    from ..core import get_backend
+    from ..core.roofline import compute_roofline
+    from ..models.flags import flags as flags_ctx
+    from ..runtime.steps import TrainOptions, default_microbatch
+    from .dryrun import get_service, lower_cell, specs_only
+    from .mesh import make_host_mesh, make_production_mesh
+
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    shape = shape_name if isinstance(shape_name, ShapeConfig) \
+        else get_shape(shape_name)
+    label = f"{cfg.name}__{shape.name}__{name}"
+    path = os.path.join(outdir, label + ".json")
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+
+    full, reduced = cfg, []
+    if layers:
+        reduced.append(f"n_layers {cfg.n_layers} -> {layers}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    mesh = make_host_mesh(1, device=device) if mesh_kind == "host" \
+        else make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    chips = mesh.size
+    hw = get_backend(hw_name).hw
+    result = {"label": label, "variant": name, "flags": model_flags,
+              "options": opt_overrides}
+    if reduced:
+        result["reduced"] = reduced
+    if mesh.devices is None:
+        result.update(specs_only(cfg, shape, mesh, label, hw))
+        result["variant"] = name
+        print(f"[{name}] {label}: specs only ({result['reason']})")
+    else:
+        dp = chips // mesh.shape["model"]
+        # the uncut config's count: a depth cut keeps the cell's loop
+        defaults = dict(microbatch=default_microbatch(
+            full, shape.global_batch, shape.seq_len, dp))
+        defaults.update(opt_overrides)
+        opts = TrainOptions(**defaults)
+        with flags_ctx(**model_flags):
+            module, mem, secs = lower_cell(cfg, shape, mesh, opts=opts)
+        rl = compute_roofline(module, hw, chips=chips, label=label,
+                              model_flops=model_flops(cfg, shape))
+        result.update({"microbatch": opts.microbatch,
+                       "compile_seconds": secs, "roofline": rl.to_dict(),
+                       "memory": mem, "kernel_regions": module.kernel_calls,
+                       "instructions": sum(
+                           1 for _ in module.all_instructions())})
+        if analyze:
+            rep = get_service(outdir).diagnose(module,
+                                               backend=hw_name).to_dict()
+            result["leo"] = {
+                "top_stalls": rep["top_stalls"][:3],
+                "root_causes": rep["root_causes"][:5],
+                "self_blame": rep["self_blame"][:3],
+                "recommendations": rep["recommendations"][:4],
+                "estimated_step_seconds": rep["estimated_step_seconds"],
+            }
+        print(f"[{name}] {rl.summary_row()}")
+    os.makedirs(outdir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=2)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +368,19 @@ def run_rewrite(backend_name, *, top_k=2, n_copies=48, outdir=None,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cell", help="not in the port yet: lowering a cell "
-                    "on the production mesh needs process groups")
-    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--cell", choices=sorted(CELLS))
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "host"],
+                    help="host: the card's own mesh; single, multi: the "
+                         "production meshes, specs only")
     ap.add_argument("--outdir", default="experiments/perf")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="the host mesh's device (cpu: the tests)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the config's smoke version (CPU runs)")
     ap.add_argument("--whatif", action="store_true",
                     help="run the model-only mutation search instead of "
                          "lowering a cell")
@@ -232,7 +390,9 @@ def main(argv=None):
                          "predicted speedup via the real text path")
     ap.add_argument("--top-k", type=int, default=2,
                     help="advice items the --rewrite loop lowers")
-    ap.add_argument("--backend", default="nvidia_gh200")
+    ap.add_argument("--backend", default="nvidia_gh200",
+                    help="the backend of the search, the rewrite loop and "
+                         "each cell's roofline and diagnosis")
     ap.add_argument("--mode", default="both",
                     choices=("blind", "guided", "both"))
     ap.add_argument("--budget", type=int, default=12)
@@ -255,11 +415,15 @@ def main(argv=None):
         return
     if args.cell is None:
         ap.error("--cell is required unless --whatif or --rewrite is given")
-    raise NotImplementedError(
-        f"--cell {args.cell}: lowering a training cell (the reference's "
-        f"run_variant) needs the production device mesh's per-device "
-        f"program, which the port does not build yet (launch/dryrun.py "
-        f"records such cells specs_only); run --whatif or --rewrite")
+    spec = CELLS[args.cell]
+    arch = spec["arch"]
+    if args.smoke:
+        from ..configs import get_config, smoke_config
+        arch = smoke_config(get_config(arch))
+    for name, model_flags, opt_overrides in spec["variants"]:
+        run_variant(arch, spec["shape"], name, model_flags, opt_overrides,
+                    args.mesh, args.outdir, hw_name=args.backend,
+                    force=args.force, device=args.device, layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -20,9 +20,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils._pytree import tree_leaves
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
+from ..core.torch_frontend import capture_functions
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -214,8 +219,8 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
 
 # -- forward -----------------------------------------------------------------
 
-# the reference's remat policies (`transformer.py::forward`); "group" and
-# "full" checkpoint its scan body, which is one layer
+# the reference's remat policies (`transformer.py::forward`); "group",
+# "full" and "group_save_moe" checkpoint its scan body, which is one layer
 REMATS = ("none", "group", "full", "group_save_moe")
 
 
@@ -248,11 +253,39 @@ def _sp_constraint(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# set while `_moe_out` takes its view: the one op `group_save_moe` saves
+_NAMING_MOE_OUT = [False]
+
+
+def _moe_out(y: torch.Tensor) -> torch.Tensor:
+    """The reference's `checkpoint_name(y, "moe_out")`: a view of the MoE
+    layer's output (no kernel, no bytes), the op `_save_moe_out` saves."""
+    _NAMING_MOE_OUT[0] = True
+    try:
+        return y.view(y.shape)
+    finally:
+        _NAMING_MOE_OUT[0] = False
+
+
+def _save_moe_out(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """`group_save_moe`'s policy, the reference's
+    `save_only_these_names("moe_out")`: the MoE output is saved, every
+    other op of the layer is recomputed in the backward."""
+    return CheckpointPolicy.MUST_SAVE if _NAMING_MOE_OUT[0] else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_moe_contexts():
+    return create_selective_checkpoint_contexts(_save_moe_out)
+
+
 def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
-           cfg: ArchConfig, positions: torch.Tensor,
-           chunk: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+           cfg: ArchConfig, positions: torch.Tensor, chunk: int,
+           name_moe_out: bool = False
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One full-sequence layer.  Returns (x, aux_loss), aux_loss None
-    unless the FFN is a MoE."""
+    unless the FFN is a MoE, whose output `name_moe_out` names for
+    `group_save_moe`."""
     x = _sp_constraint(x)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + _mixer(p, h, mixer, cfg, positions, chunk)
@@ -264,6 +297,8 @@ def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
                 get_flags().moe_impl == "ep_shardmap" else \
                 moe_mod.moe_forward
             y, aux = moe_forward(p["ffn"], h, cfg)
+            if name_moe_out:
+                y = _moe_out(y)
         else:
             y = mlp(h, p["ffn"])
         x = x + y
@@ -274,8 +309,8 @@ def _flagged_block(model_flags: ModelFlags,
                    *args) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     # the recomputation in the backward runs under the flags of the first
     # pass, whatever is set when the backward runs: the same path, kernels
-    # and all
-    with flags(**dataclasses.asdict(model_flags)):
+    # and all; and, under a capture, the same views
+    with flags(**dataclasses.asdict(model_flags)), capture_functions():
         return _block(*args)
 
 
@@ -293,14 +328,16 @@ def forward(params: Params, cfg: ArchConfig,
     the layer's forward again, kernels included; "none" keeps every
     activation.  It applies only where autograd records (grad mode on and
     a param that requires grad); serving and prefill run the layers as
-    they are.  "group_save_moe" (save each MoE layer's output, recompute
-    the rest) waits for MoE training, a later slice of the port."""
+    they are.  "group_save_moe" checkpoints a dense layer as "group" does,
+    and a MoE layer with a selective checkpoint context
+    (`create_selective_checkpoint_contexts`) that saves the layer's MoE
+    output (`_moe_out`) and recomputes every other op, the reference's
+    `save_only_these_names("moe_out")`.  No gradient of the layer reads
+    that output (the residual add's does not), so the backward recomputes
+    what "group"'s does, as the reference's compiled step does: its FLOPs
+    are "group"'s."""
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} not in {REMATS}")
-    if remat == "group_save_moe":
-        raise NotImplementedError(
-            "remat='group_save_moe' saves each MoE layer's output for the "
-            "backward; MoE training is a later slice of the port")
     dtype = torch_dtype(cfg)
     if embeds is not None:
         x = embeds.to(dtype)
@@ -321,11 +358,14 @@ def forward(params: Params, cfg: ArchConfig,
                   (_layer(stacked, i) for i in range(reps)))
         for layer in layers:
             args = (layer, x, mixer, ffn, cfg, positions, chunk)
+            save_moe = remat == "group_save_moe" and ffn == "moe"
             if recompute:
                 # the blocks draw no random numbers: no RNG state to keep
                 x, layer_aux = checkpoint(
-                    _flagged_block, model_flags, *args, use_reentrant=False,
-                    preserve_rng_state=False)
+                    _flagged_block, model_flags, *args, save_moe,
+                    use_reentrant=False, preserve_rng_state=False,
+                    **({"context_fn": _save_moe_contexts} if save_moe
+                       else {}))
             else:
                 x, layer_aux = _block(*args)
             if ffn == "moe":

@@ -30,24 +30,32 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
 
 
 class GradAccumulator:
-    """Micro-batch accumulation: `split` cuts a batch into `n_micro` equal
-    micro-batches, `accumulate` averages a gradient function over them (a
+    """Micro-batch accumulation: `stack` cuts a batch into `n_micro` equal
+    micro-batches along a new first axis (the train step's `loop` runs
+    over it), `split` into a list of them, `accumulate` averages a gradient function over them (a
     Python loop in place of the reference's `lax.scan`, the sum kept in the
     gradients' dtype)."""
 
     def __init__(self, n_micro: int):
         self.n_micro = n_micro
 
-    def split(self, batch) -> List[Any]:
-        """The micro-batches of `batch`, in order: the reference's reshape
-        to (n_micro, B // n_micro, ...) taken along its first axis."""
+    def stack(self, batch) -> Any:
+        """`batch` with each leaf reshaped to (n_micro, B // n_micro, ...),
+        the reference's reshape before its `lax.scan` over the first
+        axis."""
         for x in tree_leaves(batch):
             if x.shape[0] % self.n_micro:
                 raise ValueError(f"batch of {x.shape[0]} rows does not split "
                                  f"into {self.n_micro} micro-batches")
-        return [tree_map(lambda x, i=i: x.reshape(
-            self.n_micro, x.shape[0] // self.n_micro, *x.shape[1:])[i],
-            batch) for i in range(self.n_micro)]
+        return tree_map(lambda x: x.reshape(
+            self.n_micro, x.shape[0] // self.n_micro, *x.shape[1:]), batch)
+
+    def split(self, batch) -> List[Any]:
+        """The micro-batches of `batch`, in order: `stack`'s taken along
+        its first axis."""
+        stacked = self.stack(batch)
+        return [tree_map(lambda x, i=i: x[i], stacked)
+                for i in range(self.n_micro)]
 
     @staticmethod
     def accumulate(grad_fn: Callable, params, micro_batches: List[Any]):

@@ -4,7 +4,8 @@
 `make_train_step` returns
     (train_state, batch) -> (train_state, {"loss", "grad_norm", "lr_scale"})
 the reference's step: the loss and its gradient by `torch.autograd.grad`
-(micro-batches summed in the params' dtype, then divided), an optional
+(micro-batches summed in the params' dtype by `core/torch_frontend.loop`,
+the reference's `lax.scan`, then divided), an optional
 bf16 cast and error-feedback int8 compression of the gradients, global-norm
 clipping, the warmup-cosine schedule on the state's step, and AdamW.  The
 remat policy is the model's (`models/transformer.py::forward`).  The state
@@ -32,6 +33,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map
 
 from ..configs.base import ArchConfig
+from ..core.torch_frontend import loop
 from ..models import decode_step as model_decode_step
 from ..models import forward, init_params, loss_fn
 from ..optim import (
@@ -101,16 +103,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig = AdamWConfig(),
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         params = state["params"]
         if options.microbatch > 1:
-            micro = GradAccumulator(options.microbatch).split(batch)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=state["step"].device)
-            grads = tree_map(torch.zeros_like, params)
-            for mb in micro:
+            n = options.microbatch
+
+            def body(acc, mb):
                 mb_loss, mb_grads = loss_and_grads(params, mb)
-                loss = loss + mb_loss
-                grads = tree_map(torch.add, grads, mb_grads)
-            loss = loss / options.microbatch
-            grads = tree_map(lambda g: g / options.microbatch, grads)
+                return acc[0] + mb_loss, tree_map(torch.add, acc[1],
+                                                  mb_grads)
+
+            zeros = (torch.zeros((), dtype=torch.float32,
+                                 device=state["step"].device),
+                     tree_map(torch.zeros_like, params))
+            # the reference's lax.scan: one `while` of n trips in a capture
+            loss, grads = loop(body, zeros, GradAccumulator(n).stack(batch))
+            loss = loss / n
+            grads = tree_map(lambda g: g / n, grads)
         else:
             loss, grads = loss_and_grads(params, batch)
 

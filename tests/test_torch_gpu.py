@@ -945,6 +945,46 @@ def test_host_mesh_on_the_card():
         make_host_mesh(n + 1)
 
 
+def test_hillclimb_variant_regions_are_its_launches(tmp_path):
+    """hymba-1.5b's `ssm_pallas+flash` variant of hillclimb's cell, smoke
+    width at 2 layers, on the card's mesh: `run_variant`'s kernel regions,
+    counted trip-aware over its two micro-batches (one `while`), are the
+    launches of the real step, K1, K2 and K4's fused entry each."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.context import mesh_context
+    from repro_torch.runtime import TrainOptions, init_train_state
+    dev = _cuda()
+    spec = hillclimb.CELLS["hymba"]
+    name, model_flags, overrides = next(
+        v for v in spec["variants"] if v[0] == "ssm_pallas+flash")
+    shape = ShapeConfig("train_4x128", 128, 4, "train")
+    cfg = dataclasses.replace(smoke_config(get_config(spec["arch"])),
+                              n_layers=2)
+    rec = hillclimb.run_variant(
+        cfg, shape, name, model_flags, {"microbatch": 2, **overrides},
+        "host", str(tmp_path), hw_name="nvidia_h100_sxm", analyze=False)
+    gen = torch.Generator(dev).manual_seed(0)
+    inputs = {"state": init_train_state(cfg, gen, dev),
+              "batch": {k: torch.randint(0, cfg.vocab_size, (4, 128),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)
+                        for k in ("tokens", "labels")}}
+    step, args = dryrun.cell_program(
+        cfg, shape, inputs, "cuda", TrainOptions(microbatch=2, **overrides))
+    ops.reset_launch_counts()
+    with flags(**model_flags), mesh_context(make_host_mesh(1)):
+        _, metrics = step(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    assert rec["microbatch"] == 2
+    assert rec["kernel_regions"] == launched
+    assert set(launched) == {"flash_attention", "rmsnorm_pipelined",
+                             "ssm_scan_fused"}
+    assert np.isfinite(metrics["loss"].item())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_forward_ep_is_moe_forward_on_the_card(dtype):
     """phi3.5-moe's smoke config on the card's (1, 1) mesh: the per-shard

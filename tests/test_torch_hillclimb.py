@@ -16,6 +16,7 @@ import contextlib
 import importlib.util
 import inspect
 import io
+import json
 import os
 import re
 import subprocess
@@ -170,8 +171,103 @@ def test_main_lanes(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "[whatif:guided] nvidia_h100_sxm best" in text
     assert "[rewrite:nvidia_h100_sxm]" in text
-    with pytest.raises(NotImplementedError, match="device mesh"):
-        port_hc.main(["--cell", "hymba"])
+    # --cell on a production mesh: one specs_only record a variant
+    cells = tmp_path / "cells"
+    port_hc.main(["--cell", "hymba", "--outdir", str(cells)])
+    names = [name for name, _, _ in port_hc.CELLS["hymba"]["variants"]]
+    assert sorted(p.name for p in cells.iterdir()) == sorted(
+        f"hymba-1.5b__train_4k__{name}.json" for name in names)
+    for name in names:
+        rec = json.loads((cells / f"hymba-1.5b__train_4k__{name}.json"
+                          ).read_text())
+        assert rec["status"] == "specs_only" and rec["variant"] == name
+        assert rec["chips"] == 256 and "no partitioner" in rec["reason"]
+
+
+# the reference's flag values in the port's: K1 is "kernel" where the
+# reference says "pallas_fused"; the port's default attention is "kernel",
+# so a variant that leaves it unset in the reference sets "plain"
+ATTENTION = {"pallas_fused": "kernel", "xla": "plain"}
+
+
+def _port_flags(ref_flags):
+    flags = dict(ref_flags)
+    flags["attention_impl"] = ATTENTION[flags.get("attention_impl", "xla")]
+    return flags
+
+
+def test_cells_are_the_references():
+    assert list(port_hc.CELLS) == list(ref_hc.CELLS)
+    for cell, ref in ref_hc.CELLS.items():
+        port = port_hc.CELLS[cell]
+        assert (port["arch"], port["shape"]) == (ref["arch"], ref["shape"])
+        assert [(name, flags, opts) for name, flags, opts in
+                port["variants"]] == [
+            (name, _port_flags(flags), opts)
+            for name, flags, opts in ref["variants"]], cell
+    plain = [(cell, name) for cell, spec in port_hc.CELLS.items()
+             for name, flags, _ in spec["variants"]
+             if flags["attention_impl"] == "plain"]
+    assert plain == [("qwen2", "baseline"), ("hymba", "baseline"),
+                     ("hymba", "ssm_fused"), ("dsv2", "baseline"),
+                     ("dsv2", "ep_shardmap")]
+
+
+# the keys of the reference's record (`repro/launch/hillclimb.py:110-122`)
+# and of its `leo` part with the length each list is cut to
+RECORD_KEYS = {"label", "variant", "flags", "options", "compile_seconds",
+               "roofline", "leo"}
+LEO_CUTS = {"top_stalls": 3, "root_causes": 5, "self_blame": 3,
+            "recommendations": 4}
+# one variant of each cell that sets every flag the cell uses
+RUN_VARIANTS = [("qwen2", "flash+mb1+remat_none"),
+                ("hymba", "ssm_pallas+flash"),
+                ("dsv2", "ep+flash+save_moe")]
+
+
+@pytest.mark.parametrize("cell,variant", RUN_VARIANTS)
+def test_run_variant_records_the_references_keys(cell, variant, tmp_path):
+    """`run_variant` on `--mesh host --device cpu` at a smoke config (qwen2
+    and hymba cut to one layer; deepseek-v2's one MoE layer is its second)
+    and a small train shape, two micro-batches (one `while`
+    of 2 trips, unless the variant sets its own): the reference's record
+    plus `memory`, `microbatch`, the kernel regions and the cut; `single`
+    writes specs_only."""
+    from repro_torch.configs import ShapeConfig, get_config, smoke_config
+    spec = port_hc.CELLS[cell]
+    name, flags, opts = next(v for v in spec["variants"] if v[0] == variant)
+    cfg = smoke_config(get_config(spec["arch"]))
+    opts = {"microbatch": 2, **opts}
+    layers = None if cell == "dsv2" else 1
+    # 16 rows: the single-pod mesh's 16-way data axis divides them
+    shape = ShapeConfig("train_16x64", 64, 16, "train")
+    rec = port_hc.run_variant(cfg, shape, name, flags, opts, "host",
+                              str(tmp_path), hw_name="nvidia_h100_sxm",
+                              device="cpu", layers=layers)
+    label = f"{cfg.name}__train_16x64__{name}"
+    assert json.loads((tmp_path / f"{label}.json").read_text()) == rec
+    assert set(rec) == RECORD_KEYS | {"memory", "microbatch",
+                                      "kernel_regions", "instructions"} | (
+        {"reduced"} if layers else set())
+    assert rec["instructions"] > 0
+    assert rec["kernel_regions"] == {}  # CPU tensors take the plain paths
+    assert (rec["label"], rec["variant"], rec["flags"], rec["options"]) == \
+        (label, name, flags, opts)
+    assert rec["microbatch"] == opts["microbatch"]
+    assert rec.get("reduced") == (
+        [f"n_layers {cfg.n_layers} -> 1"] if layers else None)
+    assert rec["compile_seconds"] > 0 and rec["roofline"]["hlo_flops"] > 0
+    assert rec["memory"]["argument_size_in_bytes"] > 0
+    assert set(rec["leo"]) == set(LEO_CUTS) | {"estimated_step_seconds"}
+    assert rec["leo"]["estimated_step_seconds"] > 0
+    assert rec["leo"]["top_stalls"] and rec["leo"]["root_causes"]
+    for key, cut in LEO_CUTS.items():
+        assert len(rec["leo"][key]) <= cut, key
+    single = port_hc.run_variant(cfg, shape, name, flags, opts,
+                                 "single", str(tmp_path / "single"),
+                                 hw_name="nvidia_h100_sxm", layers=layers)
+    assert single["status"] == "specs_only" and single["variant"] == name
+    assert single["label"] == label and single["flags"] == flags
 
 
 def test_advisor_demo_smoke_equals_reference():
