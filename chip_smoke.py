@@ -142,8 +142,9 @@ error:
      `make_host_mesh(1)`: `lower_cell` on meta stand-ins for qwen2-0.5b's
      prefill (B 4 x S 1024), train step (phase 15's) and decode (8 slots
      of 1024), hymba-1.5b's prefill under the fused SSM form (B 2 x S
-     2048, phase 19's 8 captured layers) and phi3.5-moe's (8 layers, B 4 x
-     S 1024) under `moe_impl="ep_shardmap"`; each held exactly to the real
+     2048, phase 19's 8 captured layers), phi3.5-moe's (8 layers, B 4 x
+     S 1024) under `moe_impl="ep_shardmap"` and phi3.5-moe's train step
+     (2 layers, phase 15's B x S); each held exactly to the real
      step on the card (argument bytes, the capture of the real tensors,
      the launches against the kernel regions), its ms, roofline, LEO
      estimate, peak memory and capture seconds printed; the EP MoE against
@@ -165,7 +166,21 @@ error:
      loop and unrolled, FLOPs, bytes and regions equal; deepseek-v2's
      five variants captured only (4 layers, 2 trips of train_4k's
      one-row micro-batch), `save_moe`'s FLOPs between `remat_none`'s and
-     `ep+flash`'s.  One `{"hillclimb": [...]}` line lists every variant.
+     `ep+flash`'s.  One `{"hillclimb": [...]}` line lists every variant;
+ 22. MoE training at full width: phi3.5-moe on 2 of its 32 layers (2.86 B
+     parameters), phase 15's B x S, its trees' bytes from the dry run's
+     `argument_bytes` first: (a) phase 15's f32 gradient gate under remat
+     "group" and "group_save_moe", every right path's routing probed
+     against the truth's with phase 18's rule (an explained flip takes its
+     layer's router and experts out of that path's gate); (b) every MoE
+     layer's recomputation in the backward routed as its forward, 0
+     tokens apart, f32 and bf16; (c) 10 bf16 steps twice from one state
+     (the synthetic stream folded onto 256 ids, each label a fixed
+     permutation of its token), ending equal bit for bit, K1 4 and K2 9
+     launches a step under both policies, a held loss that falls, ms a
+     step and a profiled step split into K1, K2, products, routing,
+     dispatch, combine and other; (d) the
+     train driver with `--layers 2` twice, its losses equal bit for bit.
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -177,6 +192,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -1740,26 +1756,53 @@ def detached_kernel_call(torch):
     return call
 
 
+def leaf_path(path) -> str:
+    """A pytree key path as "groups/0/attn/wq"."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
 def loss_grads(torch, loss_fn, cfg, params, batch, options):
     """The train step's loss and gradients (`options.remat`, `chunk`) by
-    `torch.autograd.grad`, by leaf ("groups/0/attn/wq"); a leaf that
-    receives none gets None."""
+    `torch.autograd.grad`, by leaf (`leaf_path`); a leaf that receives
+    none gets None."""
     from torch.utils._pytree import tree_flatten_with_path, tree_unflatten
     pairs, spec = tree_flatten_with_path(params)
     tracked = [p.detach().requires_grad_() for _, p in pairs]
     loss = loss_fn(tree_unflatten(tracked, spec), cfg, batch,
                    chunk=options.chunk, remat=options.remat)
     grads = torch.autograd.grad(loss, tracked, allow_unused=True)
-    return loss.item(), {
-        "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
-        g for (path, _), g in zip(pairs, grads)}
+    return loss.item(), {leaf_path(path): g
+                         for (path, _), g in zip(pairs, grads)}
+
+
+def leaf_gap(torch, g, t, drop=None) -> float:
+    """The relative L2 gap of the gradient `g` (None: zeros) from `t`.
+    `drop`, a set of index tuples into the leading axes of `t` (a layer, or
+    a layer and an expert), leaves those slices out of both norms."""
+    g = torch.zeros_like(t) if g is None else g.float()
+    if not drop:
+        return ((g - t).norm() / t.norm()).item()
+    depth = len(next(iter(drop)))
+    num = den = 0.0
+    for idx in itertools.product(*map(range, t.shape[:depth])):
+        if idx not in drop:
+            num += (g[idx] - t[idx]).double().square().sum().item()
+            den += t[idx].double().square().sum().item()
+    return math.sqrt(num / den)
 
 
 def grad_paths(torch, ops, cfg, params, batch, flags, loss_fn,
-               attention_module, options, truth=None):
+               attention_module, options, truth=None, moe_module=None,
+               moe_slices=()):
     """Each path's gradients (see GRAD_FACTOR), as relative L2 gaps per
     leaf from `truth` (the forced-plain path's own, when None), with its
-    loss and launch counts."""
+    loss and launch counts.  With `moe_module` (phase 22) every call of
+    `moe.route` is recorded: each right path's routing is probed against
+    the truth's (`routing_flips`, the slices of an explained flip left out
+    of that path's gaps; the faults' forward is the kernel path's), and
+    every path's recomputation against its forward (`recompute_routing`).
+    `moe_slices` gives each MoE layer's (group, layer in the group)."""
     real_chunked = attention_module.chunked_attention
     paths = {
         "plain": ({"force_plain": True}, None),
@@ -1771,7 +1814,7 @@ def grad_paths(torch, ops, cfg, params, batch, flags, loss_fn,
         "fault_band_backward": ({}, ("chunked_attention",
                                      shifted_keys_attention(real_chunked))),
     }
-    out = {}
+    out, truth_routes = {}, None
     for name, (path_flags, patch) in paths.items():
         saved = None
         if patch is not None:
@@ -1779,7 +1822,7 @@ def grad_paths(torch, ops, cfg, params, batch, flags, loss_fn,
             setattr(attention_module, patch[0], patch[1])
         try:
             ops.reset_launch_counts()
-            with flags(**path_flags):
+            with flags(**path_flags), recorded_routes(moe_module) as calls:
                 loss, grads = loss_grads(torch, loss_fn, cfg, params, batch,
                                          options)
             torch.cuda.synchronize()
@@ -1790,15 +1833,23 @@ def grad_paths(torch, ops, cfg, params, batch, flags, loss_fn,
                 setattr(attention_module, patch[0], saved)
         if truth is None and name == "plain":
             truth = {leaf: g.float() for leaf, g in grads.items()}
-        gaps = {}
-        for leaf, t in truth.items():
-            g = grads[leaf]
-            g = torch.zeros_like(t) if g is None else g.float()
-            gaps[leaf] = ((g - t).norm() / t.norm()).item()
+        routing, drops = {}, {}
+        if moe_module is not None:
+            if name == "plain":
+                truth_routes = calls
+            if not name.startswith("fault"):
+                routing["flips"], drops = routing_flips(
+                    torch, cfg, calls, truth_routes, moe_slices)
+            routing["recompute"] = recompute_routing(calls)
+            routing["dropped"] = {leaf: sorted(d) for leaf, d in
+                                  drops.items()}
+        gaps = {leaf: leaf_gap(torch, grads[leaf], t, drops.get(leaf))
+                for leaf, t in truth.items()}
         out[name] = {"loss": loss, "gaps": gaps, "max_gap": max(gaps.values()),
                      "no_grad": [leaf for leaf, g in grads.items()
                                  if g is None],
-                     "launches": counts, "flash_attention_bodies": bodies}
+                     "launches": counts, "flash_attention_bodies": bodies,
+                     **routing}
         if name == "kernel":
             out[name]["zero_qkv"] = [
                 leaf for leaf, g in grads.items() if g is not None and
@@ -3239,6 +3290,7 @@ DRY_CELLS = (
      {"ssm_fused": True, "ssm_pallas": True}),
     ("phi3.5-moe-42b-a6.6b", 8, ("prefill", SLICE_S, SLICE_B),
      {"moe_impl": "ep_shardmap"}),
+    ("phi3.5-moe-42b-a6.6b", 2, ("train", TRAIN_S, TRAIN_B), {}),
 )
 DRY_BACKEND = "nvidia_h100_sxm"
 # the f32 comparison of the two MoE forms: phi3.5-moe's first layers
@@ -3356,24 +3408,46 @@ def run_dry_cell(torch, ops, core, dryrun, mesh, mesh_context, flags, cfg,
     return row, out
 
 
-def routed(torch, moe_module, run):
-    """`run()` with every call of `moe.route` recorded: the expert ids and
-    top-k margins of each MoE layer, in order."""
-    real = moe_module.route
+@contextlib.contextmanager
+def recorded_routes(moe_module):
+    """Every call of `moe.route` while the block runs, in order: the layer
+    (its router's address; the checkpoint's recomputation calls it with the
+    forward's tensors) and its expert ids, and at a layer's first call its
+    router input (f32), router, probabilities and top-k margins.  Nothing
+    is patched where `moe_module` is None."""
     calls = []
+    if moe_module is None:
+        yield calls
+        return
+    real = moe_module.route
 
-    def route(*args, **kwargs):
-        r = real(*args, **kwargs)
-        calls.append((r.expert_ids.sort(-1).values, r.margin))
+    def route(p, xf, cfg):
+        r = real(p, xf, cfg)
+        key = p["router"].data_ptr()
+        first = all(c["key"] != key for c in calls)
+        calls.append({"key": key, "expert_ids": r.expert_ids.detach(),
+                      **({"xf": xf.detach().float(),
+                          "router": p["router"].detach(),
+                          "probs": r.probs.detach(),
+                          "margin": r.margin.detach()} if first else {})})
         return r
 
     moe_module.route = route
     try:
-        out = run()
-        torch.cuda.synchronize()
+        yield calls
     finally:
         moe_module.route = real
-    return out, calls
+
+
+def routed(torch, moe_module, run):
+    """`run()`, a prefill, with every call of `moe.route` recorded
+    (`recorded_routes`): the expert ids, sorted, and top-k margins of each
+    MoE layer, in order."""
+    with recorded_routes(moe_module) as calls:
+        out = run()
+        torch.cuda.synchronize()
+    return out, [(c["expert_ids"].sort(-1).values, c["margin"])
+                 for c in calls]
 
 
 def compare_moe_forms(torch, flags, moe_module, run, dt_name):
@@ -3985,6 +4059,587 @@ def run_hillclimb(torch, ops, flags, init_params, init_train_state,
             "seconds": time.perf_counter() - t_phase}
 
 
+# -- phase 22 -----------------------------------------------------------------
+
+# Phase 22: MoE training at full width.  phi3.5-moe (d_model 4096, 32 / 8
+# heads of 128, 16 experts of ff 6400, top-2) cut to MOE_TRAIN_LAYERS of its
+# 32 layers: 2.86 B parameters, ~40 GB of bf16 train state (bf16 params,
+# f32 mu, nu and master), at phase 15's B x S.  Its parts run one after the
+# other, each freeing what it made before the next starts:
+#   (a) the f32 gradient gate, phase 15's rule and faults, under each policy
+#       of MOE_REMATS, every right path's routing probed against the
+#       truth's (`routing_flips`: an unexplained flip fails; an explained
+#       one takes that layer's router and the flipped experts out of that
+#       path's gaps);
+#   (b) the checkpoint's recomputation routes as the forward did: every MoE
+#       layer's expert ids in the forward against the recomputation's, 0
+#       tokens apart, on every path of (a) in f32 and on the kernel path in
+#       bf16 under both policies (else the gradient would belong to another
+#       routing than the loss);
+#   (c) TRAIN_STEPS bf16 steps of `make_train_step` under `TrainOptions()`,
+#       twice from one state on the same batches, the two ends equal bit for
+#       bit (params and optimizer state); K1 and K2 launched as phase 15
+#       counts them (2 L and 4 L + 1 a step) under both policies; a held
+#       loss that falls; a profiled step split by part (`moe_step_split`);
+#   (d) the train driver twice, MOE_DRIVER_STEPS steps with no checkpoint
+#       directory (a checkpoint would be ~40 GB of disk), the two runs'
+#       losses equal bit for bit.
+MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_TRAIN_LAYERS = 2
+MOE_REMATS = ("group", "group_save_moe")
+MOE_DRIVER_STEPS = 4
+# (c) trains under the reference's defaults, `AdamWConfig()` (lr 3e-4, the
+# driver's for a full-width run) and `TrainOptions()` (warmup 100 of 10,000
+# steps), on a stream with something to learn: the pipeline's synthetic
+# tokens folded onto the first MOE_TRAIN_IDS ids, each label a fixed
+# permutation of its token (`FoldedStream`).  The synthetic stream itself
+# is uniform over all 32064 ids, so no batch tells anything of another but
+# the logits' scale, and phi3.5-moe's held loss did not fall on it: 11.195
+# -> 14.089 under phase 15's schedule (lr 3e-3, warmup 2 of 10), -> 12.009
+# at lr 3e-4, -> 11.196 under the defaults (my chip runs 2-4, PR 32).
+MOE_TRAIN_IDS = 256
+# the MoE's functions whose work makes up each MoE part of phase 22's
+# profiled step: the kernels launched inside a call (forward and
+# recomputation) or by the backward of an op it ran; products (the
+# router's and the experts') are counted as products by their names
+MOE_PARTS = (("routing", "route"), ("dispatch", "dispatch"),
+             ("dispatch", "_dispatch_buffer"), ("combine", "_combine"))
+# the dispatch gather's backward, a Python autograd Function whose forward
+# the profiler records under no op of its own
+MOE_BACKWARD_NODES = (("dispatch", "_GatherTokensBackward"),)
+
+
+def recompute_routing(calls):
+    """(b): each MoE layer's calls of `moe.route` (the forward's, then the
+    recomputation's) and the tokens whose expert ids differ from the
+    forward's."""
+    layers = {}
+    for c in calls:
+        layers.setdefault(c["key"], []).append(c["expert_ids"])
+    return [{"calls": len(ids), "differ": sum(
+        int((x != ids[0]).any(-1).sum()) for x in ids[1:])}
+        for ids in layers.values()]
+
+
+def routing_flips(torch, cfg, calls, truth_calls, moe_slices):
+    """A path's routing at each MoE layer against the truth's (the forward
+    calls), phase 18's rule on two router inputs: a token whose top-k set
+    differs is a flip, explained where the truth's top-k margin is at most
+    max(ROUTE_FLOOR, (p_k + p_k+1) * expm1(2 L)), L = sum_i |x_i - x'_i| *
+    max_e |W_ie| bounding the change of any router logit between the two
+    inputs.  Returns one record a layer and the gradient slices the
+    explained flips take out of the gate: by leaf, the layer's router and
+    each expert chosen by one side only."""
+    k = cfg.top_k
+    mine = [c for c in calls if "xf" in c]
+    theirs = [c for c in truth_calls if "xf" in c]
+    require(len(mine) == len(theirs) == len(moe_slices),
+            f"phase 22: {len(mine)} / {len(theirs)} MoE layers routed, "
+            f"expected {len(moe_slices)}")
+    rows, drops = [], {}
+    for (group, rep), c, t in zip(moe_slices, mine, theirs):
+        ids = c["expert_ids"].reshape(-1, k).sort(-1).values
+        tids = t["expert_ids"].reshape(-1, k).sort(-1).values
+        flips = (ids != tids).any(-1)
+        d = t["xf"].shape[-1]
+        shift = (c["xf"] - t["xf"]).abs().reshape(-1, d) @ \
+            t["router"].float().abs().amax(-1)
+        ranked = t["probs"].reshape(-1, cfg.n_experts).sort(
+            -1, descending=True).values
+        limit = ((ranked[:, k - 1] + ranked[:, k]) *
+                 torch.expm1(2 * shift)).clamp(min=ROUTE_FLOOR)
+        margin = t["margin"].reshape(-1)
+        experts = set()
+        for a, b in zip(ids[flips].tolist(), tids[flips].tolist()):
+            experts |= set(a) ^ set(b)
+        rows.append({"layer": [group, rep], "tokens": int(flips.numel()),
+                     "flips": int(flips.sum()),
+                     "margins": margin[flips].tolist(),
+                     "limits": limit[flips].tolist(),
+                     "unexplained": int((flips & (margin > limit)).sum()),
+                     "experts": sorted(experts)})
+        if experts:
+            prefix = f"groups/{group}/ffn/"
+            drops.setdefault(prefix + "router", set()).add((rep,))
+            for name in ("w_gate", "w_up", "w_down"):
+                drops.setdefault(prefix + name, set()).update(
+                    (rep, e) for e in experts)
+    return rows, drops
+
+
+def moe_layer_slices(cfg, layer_groups):
+    """(group, layer in the group) of each MoE layer, in order."""
+    return [(g, rep) for g, ((_, ffn), reps) in enumerate(layer_groups(cfg))
+            for rep in range(reps) if ffn == "moe"]
+
+
+def moe_train_budget(torch, cfg, b: int, s: int):
+    """The bytes of phase 22's trees before anything is allocated, from the
+    dry run's `argument_bytes` on meta stand-ins on the card's own mesh
+    (`make_host_mesh(1)`): the bf16 train state and its gradient (as large
+    as the params), and the f32 gate's params, truth and path gradients."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1)
+    shape = ShapeConfig(f"train_{b}x{s}", s, b, "train")
+    args = {name: dryrun.argument_bytes(c, shape, mesh,
+                                        specs.input_specs(c, shape))
+            for name, c in (("bf16", cfg),
+                            ("f32", replace(cfg, dtype="float32")))}
+    bf16, f32 = args["bf16"], args["f32"]
+    budget = {"arguments": args,
+              "bf16_state": bf16["params"] + bf16["opt"] + bf16["step"],
+              "bf16_grads": bf16["params"], "f32_params": f32["params"],
+              "f32_gate_trees": 3 * f32["params"],
+              "card": torch.cuda.get_device_properties(0).total_memory}
+    budget["bf16_train"] = budget["bf16_state"] + budget["bf16_grads"]
+    return budget
+
+
+@contextlib.contextmanager
+def annotated_moe(torch, moe_module):
+    """Each function of MOE_PARTS run inside `torch.profiler.
+    record_function("moe.<name>")`, for a profiled step."""
+    saved = []
+    for _, attr in MOE_PARTS:
+        real = getattr(moe_module, attr)
+
+        def wrapped(*args, _real=real, _name=f"moe.{attr}", **kwargs):
+            with torch.profiler.record_function(_name):
+                return _real(*args, **kwargs)
+
+        saved.append((attr, real))
+        setattr(moe_module, attr, wrapped)
+    try:
+        yield
+    finally:
+        for attr, real in saved:
+            setattr(moe_module, attr, real)
+
+
+def moe_step_split(events, kernels_of=lambda e: e.kernels):
+    """Device ms of a profiled MoE step (under `annotated_moe`) by part:
+    K1, K2 and products by the kernel's name (STEP_KINDS); then routing,
+    dispatch and combine by where the kernel was launched: inside a call
+    of MOE_PARTS (the forward, or its recomputation in the backward), or
+    by the autograd node of an op such a call ran in the forward (matched
+    by the forward's thread and sequence number; the recomputation runs
+    on the backward's thread, whose numbers are its own) or of
+    MOE_BACKWARD_NODES; the rest is "other".
+    `kernels_of(e)` lists the kernels an op event launched, each with a
+    `name` and a `duration` in us."""
+    annotations = {f"moe.{attr}": part for part, attr in MOE_PARTS}
+    by_seq = {}
+    for e in events:
+        part = annotations.get(e.name)
+        todo = list(e.cpu_children) if part else []
+        while todo:
+            child = todo.pop()
+            if child.sequence_nr >= 0:
+                by_seq.setdefault((child.thread, child.sequence_nr), part)
+            todo += child.cpu_children
+
+    def origin(e):
+        while e is not None:
+            if e.name in annotations:
+                return annotations[e.name]
+            for part, node in MOE_BACKWARD_NODES:
+                if node in e.name:
+                    return part
+            key = (e.fwd_thread, e.sequence_nr)
+            if "Backward" in e.name and key in by_seq:
+                return by_seq[key]
+            e = e.cpu_parent
+        return None
+
+    named = STEP_KINDS[:3]
+    ms = dict.fromkeys([k for k, _ in named] + ["routing", "dispatch",
+                                                 "combine", "other"], 0.0)
+    for e in events:
+        launched = kernels_of(e)
+        if not launched:
+            continue
+        part = origin(e)
+        for kernel in launched:
+            kind = next((k for k, words in named
+                         if any(w in kernel.name for w in words)),
+                        part or "other")
+            ms[kind] += kernel.duration / 1e3
+    return ms
+
+
+def state_leaves(state):
+    """(`leaf_path`, tensor) of each leaf of a train state's params and
+    optimizer state."""
+    from torch.utils._pytree import tree_flatten_with_path
+    pairs, _ = tree_flatten_with_path({"params": state["params"],
+                                       "opt": state["opt"]})
+    return [(leaf_path(path), t) for path, t in pairs]
+
+
+def host_mismatches(torch, kept, state):
+    """The leaves of `state` whose bits differ from `kept` (a host copy of
+    another state's leaves, by path), compared on the card a leaf at a
+    time."""
+    leaves = state_leaves(state)
+    require(sorted(name for name, _ in leaves) == sorted(kept),
+            "phase 22: the two runs' states have different leaves")
+    return [name for name, t in leaves
+            if not torch.equal(kept[name].to(t.device, non_blocking=True),
+                               t)]
+
+
+def moe_grad_gate(torch, ops, cfg32, flags, loss_fn, init_params,
+                  attention_module, moe_module, runtime, batch, slices):
+    """Phase 22 (a) and (b) in f32: `grad_paths` under each policy of
+    MOE_REMATS on the weights of seed 0, phase 15's rule (GRAD_FACTOR) and
+    faults, the routing of every right path explained against the truth's
+    and every path's recomputation routed as its forward."""
+    layers = cfg32.n_layers
+    one_step = {"flash_attention": 2 * layers,
+                "rmsnorm_pipelined": 4 * layers + 1}
+    params = init_params(cfg32,
+                         torch.Generator(device="cuda").manual_seed(0))
+    out = {}
+    for remat in MOE_REMATS:
+        options = runtime.TrainOptions(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        paths, truth = grad_paths(torch, ops, cfg32, params, batch, flags,
+                                  loss_fn, attention_module, options,
+                                  moe_module=moe_module, moe_slices=slices)
+        del truth
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        spread = max(paths[n]["max_gap"]
+                     for n in ("attention_plain", "k1_plain"))
+        limit = GRAD_FACTOR * spread
+        print(f"  (a) f32 gradient gate, remat {remat!r} (chunk "
+              f"{options.chunk}), {seconds:.1f} s, peak memory "
+              f"{peak / 2**30:.3f} GiB: right paths other than the kernel "
+              f"path reach {spread:.3e}; limit {GRAD_FACTOR:g}x = "
+              f"{limit:.3e}")
+        print("    loss: " + ", ".join(f"{n} {p['loss']:.6f}"
+                                       for n, p in paths.items()))
+        print("    largest gap: " + ", ".join(
+            f"{n} {p['max_gap']:.3e}" for n, p in paths.items()))
+        for leaf in paths["plain"]["gaps"]:
+            print(f"    {leaf}: " + ", ".join(
+                f"{p['gaps'][leaf]:.2e}" for p in paths.values()))
+        for name, p in paths.items():
+            flips = p.get("flips", [])
+            print(f"    {name}: routing flips against the truth "
+                  f"{[r['flips'] for r in flips]} a layer (margins "
+                  f"{[f'{m:.3e}' for r in flips for m in r['margins']]}, "
+                  f"limits {[f'{m:.3e}' for r in flips for m in r['limits']]}"
+                  f", {sum(r['unexplained'] for r in flips)} unexplained"
+                  f"); taken out of its gate: {p['dropped'] or 'nothing'}; "
+                  f"recomputation {p['recompute']}")
+        k = paths["kernel"]
+        require(not k["no_grad"] and not k["zero_qkv"],
+                f"phase 22 {remat}: the kernel path leaves {k['no_grad']} "
+                f"without a gradient and {k['zero_qkv']} all zeros")
+        require(all(k["launches"][n] == c for n, c in one_step.items()) and
+                k["flash_attention_bodies"]["cuda_core"] == 2 * layers,
+                f"phase 22 {remat}: the kernel path's launches "
+                f"{k['launches']}, bodies {k['flash_attention_bodies']}, "
+                f"expected {one_step} on the cuda_core body")
+        for name, p in paths.items():
+            require(math.isfinite(p["loss"]),
+                    f"phase 22 {remat} {name}: the loss is not finite")
+            require(sum(r["unexplained"] for r in p.get("flips", [])) == 0,
+                    f"phase 22 {remat} {name}: routing flips beyond their "
+                    f"limits: {p.get('flips')}")
+            require(all(r == {"calls": 2, "differ": 0}
+                        for r in p["recompute"]) and
+                    len(p["recompute"]) == len(slices),
+                    f"phase 22 {remat} {name}: the recomputation routed "
+                    f"otherwise than the forward: {p['recompute']}")
+        require(k["max_gap"] <= limit, f"phase 22 {remat}: the kernel "
+                f"path's f32 gradients are {k['max_gap']} from the plain "
+                f"path's, beyond {limit}")
+        for fault in ("fault_detached", "fault_band_backward"):
+            require(paths[fault]["max_gap"] > limit,
+                    f"phase 22 {remat}: {fault} moves the f32 gradients by "
+                    f"{paths[fault]['max_gap']}, within {limit}: the gate "
+                    f"cannot see it")
+        out[remat] = {"spread": spread, "limit": limit, "paths": paths,
+                      "seconds": seconds, "peak_bytes": peak}
+    del params
+    return out
+
+
+class FoldedStream:
+    """(c)'s stream: `base`'s (a `SyntheticTokenDataset`) tokens folded
+    onto ids 0..ids-1, each label a fixed permutation of its token; the
+    dataset interface `DataPipeline` reads."""
+
+    def __init__(self, np, base, ids: int, seed: int = 0):
+        self.base, self.ids = base, ids
+        self.perm = np.random.default_rng(seed).permutation(ids).astype(
+            np.int32)
+
+    def batch(self, step: int, start_index: int, count: int):
+        tokens = self.base.batch(step, start_index, count)["tokens"] % \
+            self.ids
+        return {"tokens": tokens, "labels": self.perm[tokens]}
+
+
+def moe_train_steps(torch, ops, cfg, loss_fn, runtime, optim, pipe,
+                    moe_module):
+    """Phase 22 (b) in bf16 and (c): see the phase's comment.  `pipe`
+    gives (c)'s batches and its held one."""
+    layers = cfg.n_layers
+    one_step = {"flash_attention": 2 * layers,
+                "rmsnorm_pipelined": 4 * layers + 1}
+    options = runtime.TrainOptions()
+    step = runtime.make_train_step(cfg, optim.AdamWConfig(), options)
+    held = pipe.device_batch(10**6)  # a batch no step trains on
+
+    def fresh():
+        return runtime.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    bodies = dict.fromkeys(ops.flash_attention.body_launches, 0)
+
+    def train(state, label):
+        rows, tensor_core = [], 0
+        batches = pipe(0)
+        try:
+            for i in range(TRAIN_STEPS):
+                b = next(batches)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = ops.launch_counts()
+                for n, k in ops.flash_attention.body_launches.items():
+                    bodies[n] += k
+                tensor_core += ops.flash_attention.body_launches[
+                    "tensor_core"]
+                row = {"step": i, "seconds": seconds, "launches": counts,
+                       **{k: v.item() for k, v in metrics.items()}}
+                rows.append(row)
+                print(f"    {label} step {i}: loss {row['loss']:.6f}, "
+                      f"grad_norm {row['grad_norm']:.6f}, lr_scale "
+                      f"{row['lr_scale']:.6f}, {seconds * 1e3:.3f} ms; K1 "
+                      f"{counts['flash_attention']}, K2 "
+                      f"{counts['rmsnorm_pipelined']}")
+                require(math.isfinite(row["loss"]) and
+                        math.isfinite(row["grad_norm"]),
+                        f"phase 22 {label} step {i}: loss or grad norm not "
+                        f"finite")
+                require(all(counts[n] == c for n, c in one_step.items()),
+                        f"phase 22 {label} step {i}: launches {counts}, "
+                        f"expected {one_step}")
+        finally:
+            batches.close()
+        require(tensor_core == 2 * layers * TRAIN_STEPS, f"phase 22 "
+                f"{label}: {tensor_core} K1 launches on the tensor-core body")
+        return state, rows
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    # (b) in bf16: the kernel path's recomputation against its forward
+    batch = pipe.device_batch(0)
+    recompute = {}
+    for remat in MOE_REMATS:
+        with recorded_routes(moe_module) as calls:
+            loss_grads(torch, loss_fn, cfg, state["params"], batch,
+                       runtime.TrainOptions(remat=remat))
+        recompute[remat] = recompute_routing(calls)
+        del calls
+        print(f"  (b) bf16 kernel path, remat {remat!r}: recomputation "
+              f"{recompute[remat]}")
+        require(len(recompute[remat]) == layers and all(
+            r == {"calls": 2, "differ": 0} for r in recompute[remat]),
+            f"phase 22 bf16 {remat}: the recomputation routed otherwise "
+            f"than the forward: {recompute[remat]}")
+    held_before = loss_fn(state["params"], cfg, held).item()
+    print(f"  (c) {TRAIN_STEPS} bf16 steps of make_train_step, twice from "
+          f"the state of seed 0, on the synthetic stream folded onto "
+          f"{MOE_TRAIN_IDS} ids, each label a fixed permutation of its "
+          f"token: AdamWConfig() (lr "
+          f"{optim.AdamWConfig().lr:g}), TrainOptions() (warmup_steps "
+          f"{options.warmup_steps}, total_steps {options.total_steps}, remat "
+          f"{options.remat!r}, chunk {options.chunk})")
+    state, rows = train(state, "run 1")
+    peak = torch.cuda.max_memory_allocated()
+    held_after = loss_fn(state["params"], cfg, held).item()
+    t0 = time.perf_counter()
+    kept = {}
+    for name, t in state_leaves(state):  # pinned: ~10x a pageable copy
+        kept[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        kept[name].copy_(t)
+    copy_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    state, rows2 = train(fresh(), "run 2")
+    t0 = time.perf_counter()
+    differ = host_mismatches(torch, kept, state)
+    compare_s = time.perf_counter() - t0
+    del kept
+    same_losses = [r["loss"] for r in rows] == [r["loss"] for r in rows2]
+    ms = statistics.median(r["seconds"] for r in rows[1:]) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  {ms:.3f} ms a step (median of run 1's steps 1-"
+          f"{TRAIN_STEPS - 1}), {tokens / (ms / 1e3):.1f} tokens/s, peak "
+          f"memory {peak / 2**30:.3f} GiB; held-batch loss "
+          f"{held_before:.6f} -> {held_after:.6f}; run 2 against run 1: "
+          f"losses equal {same_losses}, leaves differing in their bits "
+          f"{differ or 'none'} (host copy {copy_s:.1f} s, compare "
+          f"{compare_s:.1f} s)")
+    require(held_after < held_before, f"phase 22: the held batch's loss "
+            f"{held_before} -> {held_after} did not fall in {TRAIN_STEPS} "
+            f"steps")
+    require(not differ and same_losses, f"phase 22: two runs from one "
+            f"state end apart: leaves {differ}, losses equal {same_losses}")
+
+    # one step under group_save_moe, counted; then one profiled step
+    save_moe = runtime.make_train_step(
+        cfg, optim.AdamWConfig(), replace(options, remat="group_save_moe"))
+    batches = pipe(TRAIN_STEPS)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        state, _ = save_moe(state, next(batches))
+        torch.cuda.synchronize()
+        save_counts = ops.launch_counts()
+        print(f"  one step under remat 'group_save_moe': K1 "
+              f"{save_counts['flash_attention']}, K2 "
+              f"{save_counts['rmsnorm_pipelined']} (under 'group': "
+              f"{one_step['flash_attention']}, "
+              f"{one_step['rmsnorm_pipelined']})")
+        require(all(save_counts[n] == c for n, c in one_step.items()),
+                f"phase 22: group_save_moe launches {save_counts}, "
+                f"expected {one_step}")
+        from torch.profiler import ProfilerActivity, profile
+        b = next(batches)
+        torch.cuda.synchronize()
+        with annotated_moe(torch, moe_module), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, b)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        batches.close()
+    device, busy_us, top = device_time(torch, prof, wall_us, top=12)
+    split = moe_step_split(prof.events())
+    del state
+    torch.cuda.empty_cache()
+    profile_row = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                   "device_idle_share": (1 - busy_us / wall_us)
+                   if device else None, "device_activities": len(device),
+                   "device_ms_by_part": split,
+                   "top_device_ms": {n: t / 1e3 for n, t in top}}
+    if device:
+        print(f"  a profiled step: {wall_us / 1e3:.3f} ms wall, device busy "
+              f"{busy_us / 1e3:.3f} ms, idle share "
+              f"{profile_row['device_idle_share']:.4f}; device ms by part: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        for name, t in profile_row["top_device_ms"].items():
+            print(f"    {t:.4f} ms  {name[:100]}")
+    else:
+        print("  the profiler saw no device activity; the split is not "
+              "measured")
+    totals = {n: sum(r["launches"][n] for r in rows + rows2)
+              for n in rows[0]["launches"]}
+    return {"B": TRAIN_B, "S": TRAIN_S,
+            "recompute_bf16": recompute, "rows": rows, "rows_run2": rows2,
+            "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+            "peak_memory_bytes": peak,
+            "held_loss": {"before": held_before, "after": held_after},
+            "bit_equal": not differ, "group_save_moe_launches": save_counts,
+            "profile": profile_row, "launches": totals,
+            "flash_attention_bodies": bodies}
+
+
+def moe_train_driver(torch, ops, train, layers: int):
+    """Phase 22 (d): `launch/train.py::main` twice, MOE_DRIVER_STEPS steps
+    of phi3.5-moe cut to `layers` at phase 15's B x S, no checkpoint; the
+    two runs' losses equal bit for bit, K1 and K2 launched 2 L and 4 L + 1
+    times a step."""
+    argv = ["--arch", MOE_TRAIN_ARCH, "--layers", str(layers), "--steps",
+            str(MOE_DRIVER_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S)]
+    runs = {}
+    for name in ("A1", "A2"):
+        print(f"  (d) run {name}: main({' '.join(argv)})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        res["run_seconds"] = time.perf_counter() - t0
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["launches"] = ops.launch_counts()
+        res["flash_attention_bodies"] = dict(
+            ops.flash_attention.body_launches)
+        torch.cuda.empty_cache()
+        runs[name] = res
+        steps = MOE_DRIVER_STEPS
+        require(res["launches"]["flash_attention"] == 2 * layers * steps and
+                res["launches"]["rmsnorm_pipelined"] ==
+                (4 * layers + 1) * steps, f"phase 22 driver {name}: "
+                f"launches {res['launches']}")
+        require(all(math.isfinite(h["loss"]) for h in res["history"]),
+                f"phase 22 driver {name}: a loss is not finite")
+        print(f"    {res['run_seconds']:.1f} s, peak memory "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB, losses "
+              f"{[h['loss'] for h in res['history']]}")
+    same = [h["loss"] for h in runs["A1"]["history"]] == \
+        [h["loss"] for h in runs["A2"]["history"]]
+    require(same, "phase 22: the driver's two runs' losses differ")
+    return {"runs": runs, "losses_equal": same}
+
+
+def run_moe_train(torch, ops, flags, get_config, init_params, loss_fn,
+                  layer_groups, attention_module, moe_module, runtime, optim,
+                  data, train):
+    """Phase 22 (see MOE_TRAIN_ARCH): the budget, then (a)-(d), each part
+    freeing its tensors before the next."""
+    t_phase = time.perf_counter()
+    cfg = replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    cfg32 = replace(cfg, dtype="float32")
+    budget = moe_train_budget(torch, cfg, TRAIN_B, TRAIN_S)
+    gib = {k: v / 2**30 for k, v in budget.items() if k != "arguments"}
+    print(f"  budget from dryrun.argument_bytes on make_host_mesh(1): bf16 "
+          f"train state {gib['bf16_state']:.3f} GiB + its gradient "
+          f"{gib['bf16_grads']:.3f}; f32 gate's params {gib['f32_params']:.3f}"
+          f" GiB, x3 with the truth's and a path's gradients "
+          f"{gib['f32_gate_trees']:.3f}; the card {gib['card']:.3f} GiB")
+    require(budget["bf16_train"] < budget["card"] and
+            budget["f32_gate_trees"] < budget["card"],
+            f"phase 22: the trees do not fit the card: {budget}")
+    slices = moe_layer_slices(cfg, layer_groups)
+    pipe = data.DataPipeline(data.SyntheticTokenDataset(data.SyntheticConfig(
+        cfg.vocab_size, TRAIN_S, seed=0)), TRAIN_B)
+    batch = pipe.device_batch(0)
+    gate = moe_grad_gate(torch, ops, cfg32, flags, loss_fn, init_params,
+                         attention_module, moe_module, runtime, batch,
+                         slices)
+    torch.cuda.empty_cache()
+    import numpy as np
+    folded = data.DataPipeline(FoldedStream(np, pipe.dataset,
+                                            MOE_TRAIN_IDS), TRAIN_B)
+    steps = moe_train_steps(torch, ops, cfg, loss_fn, runtime, optim,
+                            folded, moe_module)
+    torch.cuda.empty_cache()
+    driver = moe_train_driver(torch, ops, train, MOE_TRAIN_LAYERS)
+    return {"arch": MOE_TRAIN_ARCH, "layers": MOE_TRAIN_LAYERS,
+            "budget": budget, "grad_gate": gate, "train": steps,
+            "driver": driver, "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -4020,6 +4675,7 @@ def main(argv=None) -> int:
     from repro_torch.models import xlstm as xlstm_module
     from repro_torch.models import (forward, init_decode_state, init_params,
                                     layer_descriptors, loss_fn)
+    from repro_torch.models.transformer import layer_groups
     from repro_torch.models.flags import flags
     from repro_torch.runtime import make_prefill_step
     import repro_torch.checkpoint as checkpoint
@@ -4363,6 +5019,17 @@ def main(argv=None) -> int:
                          attention_module)
     print(f"  phase 21: {hill['seconds']:.1f} s")
 
+    # phase 22
+    print(f"phase 22: MoE training, {MOE_TRAIN_ARCH} at full width on "
+          f"{MOE_TRAIN_LAYERS} of its layers (B {TRAIN_B} x S {TRAIN_S}): the "
+          f"f32 gradient gate under {', '.join(MOE_REMATS)}, the "
+          f"recomputation's routing, bf16 steps twice, the driver twice "
+          f"({smi})")
+    moe_train = run_moe_train(torch, ops, flags, get_config, init_params,
+                              loss_fn, layer_groups, attention_module,
+                              moe_module, runtime, optim, data, train_driver)
+    print(f"  phase 22: {moe_train['seconds']:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
@@ -4373,7 +5040,8 @@ def main(argv=None) -> int:
                      row[part] for row in sliced.values()
                      for part in ("prefill", "serve")) + tuple(
                          fused_ssm["bf16"].values()) + tuple(dry["cells"]) + \
-        tuple(row for c in hill["cells"].values() for row in c["variants"])
+        tuple(row for c in hill["cells"].values() for row in c["variants"]) \
+        + (moe_train["train"],) + tuple(moe_train["driver"]["runs"].values())
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -4476,7 +5144,7 @@ def main(argv=None) -> int:
         "train_driver": driven, "upper_tiers": upper,
         "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
         "slice": sliced, "fused_ssm": fused_ssm, "dryrun": dry,
-        "hillclimb": hill,
+        "hillclimb": hill, "moe_train": moe_train,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

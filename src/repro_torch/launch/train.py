@@ -6,16 +6,21 @@ It runs on the card unless `--device cpu` is given; there the kernels'
 plain versions run.  The step runs eagerly (the port has no `jax.jit`);
 `--analyze` captures the whole step (forward, the backward through the
 per-layer recomputation, clipping and AdamW) and diagnoses it on
-`nvidia_h100_sxm`.  Examples:
+`nvidia_h100_sxm`.  `--layers N` keeps the config's first N layers, as the
+port's other launch scripts do: a MoE config's full depth does not train on
+one card.  Examples:
 
   python -m repro_torch.launch.train --smoke --device cpu --steps 30 \\
       --batch 8 --seq 32 --checkpoint-dir /tmp/ckpt --analyze
   python -m repro_torch.launch.train --steps 20 --batch 4 --seq 1024
+  python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
+      --layers 2 --steps 4 --batch 4 --seq 1024
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 
 import torch
 
@@ -28,10 +33,15 @@ from ..runtime.steps import TrainOptions, init_train_state, make_train_step
 
 def build(arch: str, smoke: bool, batch: int, seq: int, device="cuda",
           microbatch: int = 1, grad_compression: bool = False,
-          steps: int = 0, lr: float = 0.0):
+          steps: int = 0, lr: float = 0.0, layers: int = 0):
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_config(cfg)
+    if layers:
+        if not 0 < layers <= cfg.n_layers:
+            raise ValueError(f"--layers {layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = replace(cfg, n_layers=layers)
     state = init_train_state(
         cfg, torch.Generator(device=device).manual_seed(0), device)
     ds = SyntheticTokenDataset(SyntheticConfig(
@@ -76,6 +86,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers (0: all)")
     ap.add_argument("--analyze", action="store_true",
                     help="run LEO on the captured train step")
     ap.add_argument("--device", default="cuda")
@@ -87,7 +99,7 @@ def main(argv=None) -> dict:
     cfg, state, pipeline, step_fn = build(
         args.arch, args.smoke, args.batch, args.seq, args.device,
         microbatch=args.microbatch, grad_compression=args.grad_compression,
-        steps=args.steps, lr=args.lr)
+        steps=args.steps, lr=args.lr, layers=args.layers)
 
     manager = None
     start_step = 0

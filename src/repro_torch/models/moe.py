@@ -13,6 +13,18 @@ Every shape is static, as in the reference: no `nonzero`, no boolean-mask
 indexing and no `.item()`, so a capture on fake tensors runs the same
 code.
 
+Every sum over a repeated index runs in a fixed order, so the forward and
+the gradients have the same bits run after run on the card, where an
+`index_add` of rows adds them with atomics in an order that changes.  A
+token's k contributions meet in ascending expert id, the order in which
+the reference's scatter-adds meet them in the sorted list (and apply them
+on the CPU): in the combine (`_combine`), and in the backward of the
+dispatch's gather (`_GatherTokens`), where each token was gathered k
+times.  The two `index_add_`s left repeat no index that carries a
+gradient: the dispatch buffer's (`_dispatch_buffer`) repeats only the
+clamped row of dropped assignments, which add zeros, and routing's count
+of assignments an expert (`route`) has no gradient.
+
 The routing is computed over *groups* of tokens (G, T, D), each group
 routed and dispatched on its own against a capacity of its own T.
 `moe_forward` is one group of every token, the reference's form.
@@ -112,6 +124,8 @@ class Dispatch(NamedTuple):
     tokens: torch.Tensor  # (G, T*k) the token of each sorted assignment
     keep: torch.Tensor    # (G, T*k) bool: rank within its expert < capacity
     dest: torch.Tensor    # (G, T*k) row of the (E * C) buffer
+    pos: torch.Tensor     # (G, T, k) each token's places in the sorted
+                          # list, ascending: its experts by ascending id
 
 
 def dispatch(expert_ids: torch.Tensor, cap: int) -> Dispatch:
@@ -130,7 +144,13 @@ def dispatch(expert_ids: torch.Tensor, cap: int) -> Dispatch:
     rank = torch.arange(t * k, device=expert_ids.device) - first
     keep = rank < cap
     dest = se * cap + torch.clamp(rank, max=cap - 1)
-    return Dispatch(order, tokens, keep, dest)
+    # the place of each (token, choice) in the sorted list; sorted per
+    # token, it lists the token's assignments by expert id
+    pos = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(t * k, device=expert_ids.device).expand(
+            groups, t * k))
+    pos = torch.sort(pos.reshape(groups, t, k), dim=-1).values
+    return Dispatch(order, tokens, keep, dest, pos)
 
 
 def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
@@ -154,7 +174,7 @@ def _dispatch_buffer(x: torch.Tensor, ds: Dispatch, e: int,
     masked `.at[dest].add`."""
     groups, t, d = x.shape
     rows = torch.arange(groups, device=x.device)[:, None]
-    xs = _take(x, t, ds.tokens)                              # (G, T*k, D)
+    xs = _GatherTokens.apply(x, ds.tokens, ds.pos)           # (G, T*k, D)
     xs = torch.where(ds.keep[..., None], xs, torch.zeros_like(xs))
     buf = torch.zeros((groups * e * cap, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, (ds.dest + rows * (e * cap)).reshape(-1),
@@ -174,33 +194,56 @@ def _take(table: torch.Tensor, n: int, index: torch.Tensor) -> torch.Tensor:
         index.shape + (d,))
 
 
+def _sum_by_token(rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """rows (G, T*k, D), one a sorted assignment -> (G, T, D): each token's
+    k rows (`Dispatch.pos`) summed one after another in ascending expert
+    id, in the rows' dtype; a gather of unique rows, no atomics."""
+    t, k = pos.shape[1], pos.shape[2]
+    parts = _take(rows, t * k, pos)                          # (G, T, k, D)
+    y = parts[:, :, 0]
+    for j in range(1, k):
+        y = y + parts[:, :, j]
+    return y
+
+
+class _GatherTokens(torch.autograd.Function):
+    """The dispatch's gather, x (G, T, D) -> its rows `tokens` (G, T*k, D),
+    each token k times.  The backward sums a token's k row gradients by
+    `_sum_by_token`, in ascending expert id: autograd's own, an
+    `index_add` of the rows, adds them with atomics on the card, whose
+    order, and so whose bits, change from run to run when k > 2."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, tokens: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(pos)
+        return _take(x, x.shape[1], tokens)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (pos,) = ctx.saved_tensors
+        return _sum_by_token(grad, pos), None, None
+
+
 def _combine(out_buf: torch.Tensor, gates: torch.Tensor, ds: Dispatch,
              k: int) -> torch.Tensor:
     """Each token's k expert outputs, gathered back from the buffers
     out_buf (G, E, C, D) and weighted by their gates (G, T, k) -> y (G, T,
     D).  A token's k contributions are summed in a fixed order, in the
-    buffers' dtype: by ascending expert id, the order in which the
-    reference's `.at[st].add` meets them in the sorted list (and applies
-    them on the CPU).  An `index_add` of the rows would add them with
-    atomics on the card, in an order, and to bits, that change from run to
-    run."""
+    buffers' dtype (`_sum_by_token`): by ascending expert id, the order in
+    which the reference's `.at[st].add` meets them in the sorted list (and
+    applies them on the CPU).  An `index_add` of the rows would add them
+    with atomics on the card, in an order, and to bits, that change from
+    run to run.  The gather from the buffers repeats a row only at the
+    `dest` of a dropped assignment, whose weight is 0, so its backward adds
+    zeros there."""
     groups, e, cap, d = out_buf.shape
     t = gates.shape[1]
     sorted_gates = gates.reshape(groups, t * k).gather(-1, ds.order)
     weight = torch.where(ds.keep, sorted_gates,
                          torch.zeros_like(sorted_gates)).to(out_buf.dtype)
     gathered = _take(out_buf, e * cap, ds.dest) * weight[..., None]
-    # `pos` is the place of each (token, choice) in the sorted list; sorted
-    # per token, it lists the token's contributions by expert id
-    pos = torch.empty_like(ds.order).scatter_(
-        -1, ds.order, torch.arange(t * k, device=out_buf.device).expand(
-            groups, t * k))
-    pos = torch.sort(pos.reshape(groups, t, k), dim=-1).values
-    parts = _take(gathered, t * k, pos)                      # (G, T, k, D)
-    y = parts[:, :, 0]
-    for j in range(1, k):
-        y = y + parts[:, :, j]
-    return y
+    return _sum_by_token(gathered, ds.pos)
 
 
 def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig

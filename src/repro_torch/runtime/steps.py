@@ -3,14 +3,16 @@
 
 `make_train_step` returns
     (train_state, batch) -> (train_state, {"loss", "grad_norm", "lr_scale"})
-the reference's step: the loss and its gradient by `torch.autograd.grad`
-(micro-batches summed in the params' dtype by `core/torch_frontend.loop`,
-the reference's `lax.scan`, then divided), an optional
-bf16 cast and error-feedback int8 compression of the gradients, global-norm
-clipping, the warmup-cosine schedule on the state's step, and AdamW.  The
-remat policy is the model's (`models/transformer.py::forward`).  The state
-(`init_train_state`, or the reference's carried across by `models/convert.
-py::train_state_from_numpy`):
+the reference's step: the loss (`models.loss_fn`, which for a MoE config
+adds 0.01 times its routers' load-balancing losses summed in f32 over the
+layers, a dense layer's being none, as the reference's) and its gradient
+by `torch.autograd.grad` (micro-batches summed in the params' dtype by
+`core/torch_frontend.loop`, the reference's `lax.scan`, then divided), an
+optional bf16 cast and error-feedback int8 compression of the gradients,
+global-norm clipping, the warmup-cosine schedule on the state's step, and
+AdamW.  The remat policy is the model's (`models/transformer.py::forward`).
+The state (`init_train_state`, or the reference's carried across by
+`models/convert.py::train_state_from_numpy`):
     {"params", "opt": {"mu", "nu", "master", "count"}, "step"[, "grad_ef"]}
 and the step updates its optimizer state in place.
 

@@ -1013,3 +1013,111 @@ def test_moe_forward_ep_is_moe_forward_on_the_card(dtype):
         for _ in range(3):
             y, aux = moe.moe_forward_ep(p, x, cfg)
             assert torch.equal(y, glob) and torch.equal(aux, glob_aux)
+
+
+# -- MoE training ---------------------------------------------------------
+
+def _dsv2_dispatch(dev):
+    """deepseek-v2's dispatch at its width in bf16: 4096 tokens of D 5120,
+    near one shared direction, routed over 160 experts, top-6, at the
+    config's capacity (the favoured experts drop some), and a bf16
+    cotangent of the gathered rows."""
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-236b")
+    t, d, e = 4096, cfg.d_model, cfg.n_experts
+    gen = torch.Generator(dev).manual_seed(0)
+    router = 0.02 * torch.randn((d, e), generator=gen, device=dev)
+    base = torch.randn((d,), generator=gen, device=dev)
+    x = (base + 0.5 * torch.randn((1, t, d), generator=gen,
+                                  device=dev)).to(torch.bfloat16)
+    r = moe.route({"router": router}, x, cfg)
+    ds = moe.dispatch(r.expert_ids, moe._capacity(cfg, t))
+    cot = torch.randn((1, t * cfg.top_k, d), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    return moe, cfg, x, ds, cot
+
+
+def _gather_grad(gather, x, cot):
+    xt = x.detach().requires_grad_()
+    grad = torch.autograd.grad(gather(xt), xt, cot)[0]
+    torch.cuda.synchronize()
+    return grad
+
+
+def test_dispatch_backward_is_deterministic_on_the_card():
+    """The dispatch's gather at deepseek-v2's width (k = 6): its backward
+    sums each token's six row gradients in ascending expert id with no
+    atomics, so run after run gives the same bits; it agrees with
+    autograd's own `index_select` backward within bf16 rounding of six
+    addends (2^-5 of the largest gradient)."""
+    dev = _cuda()
+    moe, cfg, x, ds, cot = _dsv2_dispatch(dev)
+    assert cfg.top_k == 6 and not bool(ds.keep.all())
+
+    def fixed(xt):
+        return moe._GatherTokens.apply(xt, ds.tokens, ds.pos)
+    first = _gather_grad(fixed, x, cot)
+    for _ in range(3):
+        assert torch.equal(_gather_grad(fixed, x, cot), first)
+    plain = _gather_grad(lambda xt: moe._take(xt, x.shape[1], ds.tokens),
+                         x, cot)
+    scale = first.float().abs().max().item()
+    _close(first, plain, (2.0 ** -5 * scale, 0.0))
+
+
+def test_index_select_backward_bits_on_the_card():
+    """Autograd's own backward of the same gather, an `index_add` of the
+    rows with atomics: printed whether its bits change between runs (not
+    gated: the order of the atomics is the card's), and held to the
+    fixed-order backward within bf16 rounding of six addends."""
+    dev = _cuda()
+    moe, _, x, ds, cot = _dsv2_dispatch(dev)
+
+    def plain(xt):
+        return moe._take(xt, x.shape[1], ds.tokens)
+    runs = [_gather_grad(plain, x, cot) for _ in range(4)]
+    differ = sum(not torch.equal(g, runs[0]) for g in runs[1:])
+    print(f"index_select backward at deepseek-v2's width, bf16, k 6: "
+          f"{differ} of 3 reruns differ from the first in their bits")
+    fixed = _gather_grad(
+        lambda xt: moe._GatherTokens.apply(xt, ds.tokens, ds.pos), x, cot)
+    scale = fixed.float().abs().max().item()
+    _close(runs[0], fixed, (2.0 ** -5 * scale, 0.0))
+
+
+@pytest.mark.parametrize("remat", ["group", "group_save_moe"])
+def test_moe_train_step_on_the_card(remat):
+    """One bf16 train step of phi3.5-moe's smoke config (2 MoE layers) on
+    the card: K1 4 times (each layer's attention, and again in the
+    checkpoint's recomputation) and K2 9 times (2 norms a layer twice, and
+    the final one) a step, under both checkpointing policies; finite
+    losses and grad norms, the step counter advanced, and after the second
+    step (the first is at lr_scale 0) every f32 master weight moved."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (TrainOptions, init_train_state,
+                                     make_train_step)
+    dev = _cuda()
+    cfg = smoke_config(get_config("phi3.5-moe-42b-a6.6b"))
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    before = [t.clone() for t in torch.utils._pytree.tree_leaves(
+        state["opt"]["master"])]
+    gen = torch.Generator(dev).manual_seed(1)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), TrainOptions(
+        remat=remat, chunk=64, warmup_steps=1, total_steps=4))
+    for i in range(2):
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, 128),
+                                  generator=gen, device=dev)
+                 for k in ("tokens", "labels")}
+        ops.reset_launch_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == 2 * cfg.n_layers == 4
+        assert counts["rmsnorm_pipelined"] == 4 * cfg.n_layers + 1 == 9
+        assert all(v == 0 for k, v in counts.items()
+                   if k not in ("flash_attention", "rmsnorm_pipelined"))
+        assert np.isfinite(metrics["loss"].item())
+        assert np.isfinite(metrics["grad_norm"].item())
+        assert int(state["step"]) == i + 1
+    after = torch.utils._pytree.tree_leaves(state["opt"]["master"])
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))

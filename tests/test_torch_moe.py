@@ -318,3 +318,94 @@ def test_captured_moe_loss_diagnoses_on_h100(arch):
     assert an.estimated_step_seconds > 0
     assert an.chains or an.blame.occupancy_blame, \
         "LEO must produce a diagnosis"
+
+
+def _moe_train_inputs():
+    from repro_torch.runtime import TrainOptions
+    tcfg = smoke_config(get_config(MOE_ARCHS[0]))
+    tcfg = dataclasses.replace(tcfg, dtype="float32")
+    params = tt.init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, tcfg.vocab_size, (2, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    return tcfg, params, batch, TrainOptions(chunk=32)
+
+
+def test_phase22_routing_records():
+    """`chip_smoke.py` phase 22's routing records on phi3.5-moe smoke in
+    f32: one train-step gradient records each MoE layer's routing twice
+    (the forward, then the checkpoint's recomputation), 0 tokens apart;
+    against itself a path has no flip and leaves nothing out; a router
+    input moved by a small amount flips only tokens whose margin its shift
+    explains, and takes that layer's router and the flipped experts out of
+    the gate (`leaf_gap` then skips those slices)."""
+    cs = _chip_smoke()
+    tcfg, params, batch, options = _moe_train_inputs()
+    slices = cs.moe_layer_slices(tcfg, tt.layer_groups)
+    assert slices == [(0, 0), (0, 1)]
+    with cs.recorded_routes(t_moe) as calls:
+        _, grads = cs.loss_grads(torch, tt.loss_fn, tcfg, params, batch,
+                                 options)
+    assert cs.recompute_routing(calls) == [{"calls": 2, "differ": 0}] * 2
+    rows, drops = cs.routing_flips(torch, tcfg, calls, calls, slices)
+    assert [r["flips"] for r in rows] == [0, 0] and drops == {}
+
+    moved = [dict(c) for c in calls]
+    first = next(c for c in moved if "xf" in c)
+    gen = torch.Generator().manual_seed(2)
+    first["xf"] = first["xf"] + 0.05 * torch.randn(first["xf"].shape,
+                                                   generator=gen)
+    routed = t_moe.route({"router": first["router"]}, first["xf"], tcfg)
+    first["expert_ids"] = routed.expert_ids
+    rows, drops = cs.routing_flips(torch, tcfg, moved, calls, slices)
+    assert rows[0]["flips"] > 0 and rows[0]["unexplained"] == 0
+    assert rows[1]["flips"] == 0
+    assert drops["groups/0/ffn/router"] == {(0,)}
+    assert drops["groups/0/ffn/w_up"] == {(0, e) for e in rows[0]["experts"]}
+    up = grads["groups/0/ffn/w_up"]
+    other = up.clone()
+    for _, e in drops["groups/0/ffn/w_up"]:
+        other[0, e] += 1.0
+    assert cs.leaf_gap(torch, other, up, drops["groups/0/ffn/w_up"]) == 0
+    assert cs.leaf_gap(torch, other, up) > 0
+    assert cs.leaf_gap(torch, None, up) == pytest.approx(1.0)
+
+
+def test_phase22_profile_split_reaches_each_moe_part():
+    """`chip_smoke.py::moe_step_split` on a CPU profile of one train step
+    of phi3.5-moe smoke under `annotated_moe` (each op's own CPU time
+    standing in for its kernels): routing, dispatch and combine each
+    receive time, the dispatch also through its gather's backward, and
+    the parts sum to the whole."""
+    from torch.profiler import ProfilerActivity, profile
+    from types import SimpleNamespace
+    from repro_torch.runtime import init_train_state, make_train_step
+    cs = _chip_smoke()
+    tcfg, _, batch, options = _moe_train_inputs()
+    state = init_train_state(tcfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(tcfg, options=options)
+    with cs.annotated_moe(torch, t_moe), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    assert t_moe.route.__name__ == "route"  # restored
+
+    def own(e):
+        return [SimpleNamespace(name=e.name, duration=e.self_cpu_time_total)
+                ] if not e.cpu_children else []
+    events = prof.events()
+    split = cs.moe_step_split(events, own)
+    assert all(split[part] > 0 for part in ("routing", "dispatch",
+                                            "combine", "other"))
+    whole = sum(k.duration for e in events for k in own(e)) / 1e3
+    assert sum(split.values()) == pytest.approx(whole)
+
+    def under_gather_backward(e):
+        while e is not None:
+            if "_GatherTokensBackward" in e.name:
+                return True
+            e = e.cpu_parent
+        return False
+    gather = sum(k.duration for e in events if under_gather_backward(e)
+                 for k in own(e))
+    assert gather > 0 and split["dispatch"] * 1e3 >= gather

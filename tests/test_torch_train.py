@@ -2,11 +2,15 @@
 reference's, `jax.jit(make_train_step(...))` under no mesh (the reference's
 `launch/train.py` fails on this tree, ROADMAP C-watch 1).
 
-qwen2-0.5b smoke in f32 (in bf16 the two packages' gradients differ by up
-to 1.7e-2 of a leaf's largest, too far for a parity test), both packages
-starting from the reference's train state carried across by
-`train_state_from_numpy`, 3 steps on the same numpy batches with warmup 2,
-so `lr_scale` reads 0, 0.5 and 1 and the last two steps move the params.
+qwen2-0.5b smoke in f32 under four option sets, and the two MoE smoke
+configs (phi3.5-moe, deepseek-v2 with its dense first layer) under the
+default options and two micro-batches, their loss carrying the routers'
+aux loss at the reference's weight 0.01 (in bf16 the two packages'
+gradients differ by up to 1.7e-2 of a leaf's largest, too far for a
+parity test), both packages starting from the reference's train state
+carried across by `train_state_from_numpy`, 3 steps on the same numpy
+batches with warmup 2, so `lr_scale` reads 0, 0.5 and 1 and the last two
+steps move the params.
 Tolerances:
 * loss and `grad_norm` rel 1e-5, as `tests/test_torch_loss.py` holds the
   loss (the same f32 forward, sums in another order);
@@ -52,11 +56,16 @@ LR = 1e-3
 OPTIONS = {"default": {}, "microbatch": {"microbatch": 2},
            "bf16_grads": {"grad_dtype": "bf16"},
            "compression": {"grad_compression": True}}
+MOE_ARCHS = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
+# (arch, option set): qwen2-0.5b's cases keep their option set's name
+STEP_CASES = [pytest.param(ARCH, name, id=name) for name in sorted(OPTIONS)] \
+    + [pytest.param(arch, name, id=f"{arch}-{name}") for arch in MOE_ARCHS
+       for name in ("default", "microbatch")]
 
 
-def _configs(dtype="float32"):
-    return (dataclasses.replace(j_smoke(j_get_config(ARCH)), dtype=dtype),
-            dataclasses.replace(smoke_config(get_config(ARCH)), dtype=dtype))
+def _configs(dtype="float32", arch=ARCH):
+    return (dataclasses.replace(j_smoke(j_get_config(arch)), dtype=dtype),
+            dataclasses.replace(smoke_config(get_config(arch)), dtype=dtype))
 
 
 def _batches(n, b=4, s=64, vocab=256, seed=1):
@@ -80,9 +89,14 @@ def _flat(tree, prefix=""):
         yield prefix, np.asarray(tree, np.float64)
 
 
-@pytest.mark.parametrize("name", sorted(OPTIONS))
-def test_train_step_matches_reference(name):
-    jcfg, tcfg = _configs()
+@pytest.mark.parametrize("arch,name", STEP_CASES)
+def test_train_step_matches_reference(arch, name):
+    """Measured largest gaps over the 3 steps (printed; `pytest -s`), loss
+    / grad norm relative and the state absolute: qwen2-0.5b default 1.2e-7
+    / 1.2e-7 / 2.2e-7; phi3.5-moe default 1.7e-7 / 6.0e-8 / 1.2e-7,
+    microbatch 1.7e-7 / 1.2e-7 / 2.4e-7; deepseek-v2 default 2.6e-7 / 0 /
+    1.2e-7, microbatch 8.6e-8 / 0 / 1.2e-7."""
+    jcfg, tcfg = _configs(arch=arch)
     kw = dict(warmup_steps=2, total_steps=10, chunk=32, **OPTIONS[name])
     jstate = j_init_train_state(jax.random.PRNGKey(0), jcfg)
     tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), tcfg,
@@ -90,10 +104,13 @@ def test_train_step_matches_reference(name):
     jstep = jax.jit(j_make_train_step(jcfg, JAdamWConfig(lr=LR),
                                       JTrainOptions(**kw)))
     tstep = make_train_step(tcfg, AdamWConfig(lr=LR), TrainOptions(**kw))
-    for i, batch in enumerate(_batches(STEPS)):
+    rel = {"loss": 0.0, "grad_norm": 0.0}
+    for i, batch in enumerate(_batches(STEPS, vocab=tcfg.vocab_size)):
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
         tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
                                     for k, v in batch.items()})
+        for k in rel:
+            rel[k] = max(rel[k], abs(float(tm[k]) / float(jm[k]) - 1))
         assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
                                                   rel=1e-5), i
         assert float(tm["grad_norm"]) == pytest.approx(
@@ -111,6 +128,9 @@ def test_train_step_matches_reference(name):
                                                 for k in keys})))
     got = dict(_flat({k: tstate[k] for k in keys}))
     assert got.keys() == want.keys()
+    print(f"{arch} {name}: loss {rel['loss']:.1e}, grad norm "
+          f"{rel['grad_norm']:.1e} relative; state "
+          f"{max(np.abs(got[p] - want[p]).max() for p in want):.1e}")
     for path in want:
         np.testing.assert_allclose(got[path], want[path], rtol=0,
                                    atol=1e-4, err_msg=path)
@@ -252,8 +272,6 @@ def test_remat_policies_are_the_references():
         loss_fn(params, tcfg, batch, remat="layer")
 
 
-MOE_ARCHS = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
-
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_group_save_moe_gradients_match_reference(arch):
@@ -323,3 +341,70 @@ def test_grad_dtype_is_checked():
     _, tcfg = _configs()
     with pytest.raises(ValueError, match="grad_dtype"):
         make_train_step(tcfg, AdamWConfig(), TrainOptions(grad_dtype="fp8"))
+
+
+@pytest.mark.parametrize("k", [2, 6])
+def test_dispatch_gather_backward_sums_in_expert_order(k):
+    """The dispatch's gather (`moe._GatherTokens`, each token gathered k
+    times) in f32 on 2 groups of 96 tokens over 16 experts, capacity 4k
+    (some assignments dropped): its gradient equals, bit for bit, each
+    token's k row gradients summed one after another in ascending expert
+    id, written out here; it equals autograd's own backward of the same
+    `index_select` and the reference's `jax.grad` through its `xf[st]`
+    (`repro/models/moe.py`'s dispatch gather, st the sorted tokens) within
+    f32 rounding, 1e-6 of the largest gradient (a sum of k values in
+    another order); and the MoE layer's graph holds it."""
+    from repro_torch.models import moe as t_moe
+    groups, t, e, d, cap = 2, 96, 16, 8, 4 * k
+    rng = np.random.default_rng(k)
+    ids = np.stack([np.stack([rng.permutation(e)[:k] for _ in range(t)])
+                    for _ in range(groups)])
+    ds = t_moe.dispatch(torch.from_numpy(ids), cap)
+    assert not bool(ds.keep.all())
+    x = rng.standard_normal((groups, t, d)).astype(np.float32)
+    cot = rng.standard_normal((groups, t * k, d)).astype(np.float32)
+
+    def grad(gather):
+        xt = torch.from_numpy(x).requires_grad_()
+        return torch.autograd.grad(gather(xt), xt, torch.from_numpy(cot))[
+            0].numpy()
+    got = grad(lambda xt: t_moe._GatherTokens.apply(xt, ds.tokens, ds.pos))
+    plain = grad(lambda xt: t_moe._take(xt, t, ds.tokens))
+
+    tokens = ds.tokens.numpy()
+    sorted_ids = np.take_along_axis(ids.reshape(groups, t * k),
+                                    ds.order.numpy(), -1)
+    want = np.zeros_like(x)
+    for g in range(groups):
+        for tok in range(t):
+            rows = [int(np.flatnonzero((tokens[g] == tok) &
+                                       (sorted_ids[g] == ex))[0])
+                    for ex in sorted(ids[g, tok])]
+            acc = cot[g, rows[0]]
+            for r in rows[1:]:
+                acc = acc + cot[g, r]
+            want[g, tok] = acc
+    assert np.array_equal(got, want)
+
+    ref = np.stack([np.asarray(jax.grad(
+        lambda xf, st=tokens[g], c=cot[g]: jnp.sum(xf[st] * c))(
+            jnp.asarray(x[g]))) for g in range(groups)])
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
+
+    cfg = dataclasses.replace(smoke_config(get_config(
+        "deepseek-v2-236b")), dtype="float32", top_k=k, n_experts=e,
+        d_model=d)
+    p = {name: v[0] for name, v in t_moe.init_moe(
+        cfg, 1, lambda shape, scale, dtype: scale * torch.randn(shape),
+        torch.float32, "cpu").items() if isinstance(v, torch.Tensor)}
+    xt = torch.from_numpy(x).requires_grad_()
+    y, _ = t_moe.moe_groups(p, xt, cfg)
+    seen, todo = set(), [y.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and node not in seen:
+            seen.add(node)
+            todo += [child for child, _ in node.next_functions]
+    assert "_GatherTokensBackward" in {node.name() for node in seen}

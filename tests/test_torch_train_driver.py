@@ -77,6 +77,36 @@ def test_restored_run_continues_the_uninterrupted_one(tmp_path):
         [h["loss"] for h in whole["history"][2:]]
 
 
+def test_moe_layers_restored_run_continues_the_uninterrupted_one(tmp_path):
+    """phi3.5-moe's smoke config cut to its first layer (`--layers 1`, a
+    MoE layer): two steps, saved and restored, then two more give the
+    losses of four steps in one run, bit for bit (the checkpoint carries
+    the router, the experts and their optimizer state); the cut config
+    keeps the one MoE layer."""
+    args = ["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--layers", "1",
+            "--batch", "4", "--seq", "32"] + CPU
+    whole = main(args + ["--steps", "4"])
+    main(args + ["--steps", "2", "--checkpoint-dir", str(tmp_path)])
+    resumed = main(args + ["--steps", "4", "--checkpoint-dir",
+                           str(tmp_path), "--restore"])
+    assert [h["step"] for h in resumed["history"]] == [2, 3]
+    assert [h["loss"] for h in resumed["history"]] == \
+        [h["loss"] for h in whole["history"][2:]]
+    cfg, state, _, _ = train_mod.build("phi3.5-moe-42b-a6.6b", True, 4, 32,
+                                       "cpu", layers=1)
+    assert cfg.n_layers == 1 and len(state["params"]["groups"]) == 1
+    moe = state["params"]["groups"][0]["ffn"]
+    assert {"router", "w_gate", "w_up", "w_down"} <= set(moe)
+    assert moe["w_up"].shape[:2] == (1, cfg.n_experts)
+
+
+@pytest.mark.parametrize("layers", [3, -1])
+def test_layers_beyond_the_config_raise(layers):
+    with pytest.raises(ValueError, match="--layers"):
+        main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--layers",
+              str(layers), "--steps", "1"] + CPU)
+
+
 def test_first_steps_match_the_reference_jitted_step(monkeypatch):
     steps, batch, seq = 3, 4, 64
     jcfg = dataclasses.replace(j_smoke(j_get_config(ARCH)), dtype="float32")
