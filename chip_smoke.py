@@ -149,8 +149,9 @@ error:
      the launches against the kernel regions), its ms, roofline, LEO
      estimate, peak memory and capture seconds printed; the EP MoE against
      the global form in bf16 and f32, `sequence_parallel` bit for bit, a
-     leaf of the wrong dtype failing the byte equality; then `run_cell`
-     over every config x shape x production mesh (specs only);
+     leaf of the wrong dtype failing the byte equality; then each
+     argument tree's bytes a device of every config x shape x production
+     mesh under the specs, and whether they fit the card;
  21. hillclimb's training cells (`launch/hillclimb.py::run_variant`) on
      the card's own mesh: qwen2-0.5b's five variants at full width and
      depth and hymba-1.5b's at phase 19's 8 layers, B 8 x S 1024 on the
@@ -180,7 +181,18 @@ error:
      launches a step under both policies, a held loss that falls, ms a
      step and a profiled step split into K1, K2, products, routing,
      dispatch, combine and other; (d) the
-     train driver with `--layers 2` twice, its losses equal bit for bit.
+     train driver with `--layers 2` twice, its losses equal bit for bit;
+ 23. the per-device program of a mesh (`runtime/steps.py`): (a) on an
+     NCCL group of one rank, phase 22's MoE train step and qwen2-0.5b's
+     prefill at full width under `moe_impl="ep_shardmap"` and
+     `sequence_parallel`, placed by the sharding rules (`place`) and run
+     by `shard_step`, bit for bit the one-card step's, K1 and K2 launched
+     alike; (b) in a child process, qwen2-0.5b train_4k's per-device
+     program on the 16x16 mesh behind the fake process group, at 1
+     layer: the roofline's three terms and the collective bytes by kind
+     (LEO's model, not card times); (c) where four cards exist, four NCCL
+     ranks on a (2, 2) mesh, qwen2-0.5b's f32 step (2 layers) within 3x
+     the one-card right paths' spread, else "4-rank: not run".
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 every kernel.  Details go to chiprun_out/chip_smoke.json.
 
@@ -2101,17 +2113,17 @@ def run_train_driver(torch, ops, cfg, train, checkpoint, core, work: Path,
             log["saves"][-1]["written"] = time.perf_counter()
             super()._rotate()
 
-        def restore_latest(self, like, device=None):
+        def restore_latest(self, like, device=None, shardings=None):
             t0 = time.perf_counter()
-            out = super().restore_latest(like, device)
+            out = super().restore_latest(like, device, shardings)
             log["restore_seconds"] = time.perf_counter() - t0
             return out
 
     class KeepRestored(TimedManager):
         """Run C's manager: also keeps a device copy of what it
         restored."""
-        def restore_latest(self, like, device=None):
-            state, step = super().restore_latest(like, device)
+        def restore_latest(self, like, device=None, shardings=None):
+            state, step = super().restore_latest(like, device, shardings)
             kept["state"] = tree_map(torch.clone, state)
             kept["step"] = step
             return state, step
@@ -2120,7 +2132,7 @@ def run_train_driver(torch, ops, cfg, train, checkpoint, core, work: Path,
         class FaultyRestore(checkpoint.CheckpointManager):
             """A restore that loses one part of run C's state; saves
             nothing."""
-            def restore_latest(self, like, device=None):
+            def restore_latest(self, like, device=None, shardings=None):
                 state = tree_map(torch.clone, kept["state"])
                 if kind == "drop_mu":
                     state["opt"]["mu"] = like["opt"]["mu"]
@@ -3351,8 +3363,8 @@ def run_dry_cell(torch, ops, core, dryrun, mesh, mesh_context, flags, cfg,
     label = f"{cfg.name}__{shape.name}__host"
     with flags(**model_flags):
         module, memory, capture_s = dryrun.lower_cell(cfg, shape, mesh)
-        real_bytes = sum(t.numel() * t.element_size()
-                         for t in _leaves(inputs))
+        real_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+            dryrun.program_inputs(shape, inputs)))
         step, args = dryrun.cell_program(
             cfg, shape, inputs, "cuda", dryrun.cell_options(cfg, shape,
                                                             mesh))
@@ -3566,6 +3578,12 @@ def run_dryrun(torch, ops, core, flags, get_config, init_params,
         inputs = out = None
         torch.cuda.empty_cache()
 
+    # every production cell's arguments a device under the specs (the
+    # records' `argument_bytes`; phase 23 (b) captures a cell's program)
+    from repro_torch.core import get_backend
+    from repro_torch.launch import specs as dry_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    hbm = get_backend(DRY_BACKEND).hw.hbm_bytes
     t0 = time.perf_counter()
     fits, over, total = [], [], 0
     with tempfile.TemporaryDirectory(prefix="phase20_") as tmp, \
@@ -3574,23 +3592,28 @@ def run_dryrun(torch, ops, core, flags, get_config, init_params,
             for shape in shapes_for(cfg) + (
                     () if cfg.supports_long_context else (LONG_500K,)):
                 for mesh_kind in ("single", "multi"):
-                    rec = dryrun.run_cell(cfg.name, shape.name, mesh_kind,
-                                          tmp, hw_name=DRY_BACKEND)
                     total += 1
-                    require(rec["status"] in ("specs_only", "skipped"),
-                            f"phase 20: {rec.get('label')} "
-                            f"{rec.get('status')}: {rec.get('error')}")
-                    if rec.get("fits"):
-                        fits.append(rec["label"])
-                    elif "fits" in rec:
-                        over.append(rec["label"])
+                    label = f"{cfg.name}__{shape.name}__{mesh_kind}"
+                    if shape is LONG_500K and not cfg.supports_long_context:
+                        rec = dryrun.run_cell(cfg.name, shape.name,
+                                              mesh_kind, tmp,
+                                              hw_name=DRY_BACKEND)
+                        require(rec["status"] == "skipped",
+                                f"phase 20: {label} {rec.get('status')}")
+                        continue
+                    args = dryrun.argument_bytes(
+                        cfg, shape, make_production_mesh(
+                            multi_pod=(mesh_kind == "multi")),
+                        dry_specs.input_specs(cfg, shape))
+                    (fits if sum(args.values()) <= hbm else
+                     over).append(label)
     sweep_s = time.perf_counter() - t0
     by_arch = {}
     for label in fits:
         arch, shape_name, mesh_kind = label.split("__")
         by_arch.setdefault(arch, []).append(f"{shape_name}/{mesh_kind}")
-    print(f"  run_cell over {total} cells (every config x its shapes x "
-          f"single, multi; specs only) in {sweep_s:.2f} s: {len(fits)} fit "
+    print(f"  argument bytes of {total} cells (every config x its shapes "
+          f"x single, multi; the specs') in {sweep_s:.2f} s: {len(fits)} fit "
           f"{DRY_BACKEND}'s 80 GB a device: "
           f"{'; '.join(f'{a}: ' + ' '.join(c) for a, c in by_arch.items())}"
           f"; {len(over)} do not: {over}")
@@ -3766,12 +3789,12 @@ def hill_step(torch, ops, dryrun, flags, mesh, mesh_context, cfg, shape,
     if steps_module is not None:
         clip = steps_module.clip_by_global_norm
 
-        def keeping_clip(tree, max_norm):
+        def keeping_clip(tree, max_norm, **kw):
             for path, g in tree_flatten_with_path(tree)[0]:
                 grads.append(g.float())
                 leaves.append("/".join(str(getattr(
                     k, "key", getattr(k, "idx", k))) for k in path))
-            return clip(tree, max_norm)
+            return clip(tree, max_norm, **kw)
         patches = tuple(patches) + (
             (steps_module, "clip_by_global_norm", keeping_clip),)
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
@@ -4640,6 +4663,362 @@ def run_moe_train(torch, ops, flags, get_config, init_params, loss_fn,
             "driver": driver, "seconds": time.perf_counter() - t_phase}
 
 
+# -- phase 23 -----------------------------------------------------------------
+
+# Phase 23: the per-device program of a mesh (`runtime/steps.py`).
+# (a) on a process group of one rank (NCCL): phase 22's MoE step and
+# qwen2-0.5b's prefill through `place` and `shard_step`, each against the
+# one-card step on the same inputs, bit for bit, K1 and K2 launched alike;
+# (b) a production cell's per-device program captured in a child process
+# behind the fake process group; (c) four NCCL ranks on a (2, 2) mesh where
+# four cards exist.
+MESH_PREFILL = (4, 1024)            # qwen2-0.5b's prefill, phase 4's B x S
+MESH_CELL = ("qwen2-0.5b", "train_4k", "single", 1)  # arch, shape, mesh, layers
+MESH_FLAGS = {"moe_impl": "ep_shardmap", "sequence_parallel": True}
+MESH_RANKS_LAYERS = 2               # (c): qwen2-0.5b at full width, 2 layers
+MESH_RANKS_FACTOR = 3.0             # (c): phase 15's factor over the right
+                                    # paths' spread
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def one_rank_group(torch):
+    """The default process group of one rank on the card (NCCL)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    return dist
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(torch.uint8) if a.dtype != torch.bool else a,
+                    b.view(torch.uint8) if b.dtype != torch.bool else b)
+
+
+def mesh_moe_step(torch, ops, flags, get_config, runtime, data):
+    """(a) phase 22's phi3.5-moe train step (2 layers, B x S of phase 15)
+    under MESH_FLAGS: the one-card step, then the same state (seed 0) and
+    batch placed on the one-rank mesh and stepped by its per-device
+    program; the new params, loss and grad norm equal bit for bit."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.context import mesh_context
+    from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                               gather, place)
+    from repro_torch.runtime.steps import shard_step, train_specs
+    cfg = replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    pipe = data.DataPipeline(data.SyntheticTokenDataset(data.SyntheticConfig(
+        cfg.vocab_size, TRAIN_S, seed=0)), TRAIN_B)
+    batch = pipe.device_batch(0)
+    # a state past its warmup (step 1 of a 1-step warmup, lr_scale 1), so
+    # AdamW moves every weight and the new params' bits test the update
+    options = runtime.TrainOptions(warmup_steps=1)
+
+    def fresh():
+        state = runtime.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        state["step"].fill_(1)
+        return state
+
+    rows = {}
+    with flags(**MESH_FLAGS):
+        mesh = make_host_mesh(1)
+        step = runtime.make_train_step(cfg, options=options)
+        state = fresh()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mesh_context(mesh):
+            new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        rows["one_card"] = {"seconds": time.perf_counter() - t0,
+                            "launches": ops.launch_counts()}
+        kept = [t.cpu() for t in _leaves(new["params"])]
+        want = {k: v.item() for k, v in metrics.items()}
+        state = new = metrics = None
+        torch.cuda.empty_cache()
+
+        mesh = make_host_mesh(1)  # now over the group's one rank
+        require(mesh.device_mesh is not None, f"phase 23: {mesh} has no "
+                f"DeviceMesh")
+        rules = ShardingRules(mesh, cfg)
+        state = fresh()
+        specs = train_specs(rules, state)
+        sharded = shard_step(
+            runtime.make_train_step(cfg, options=options, specs=specs),
+            mesh, (specs, {k: PartitionSpec() for k in
+                           ("loss", "grad_norm", "lr_scale")}))
+        placed = place(state, specs, mesh)
+        pbatch = place(batch, rules.batch_specs(
+            cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train")), mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, metrics = sharded(placed, pbatch)
+        torch.cuda.synchronize()
+        rows["one_rank_mesh"] = {"seconds": time.perf_counter() - t0,
+                                 "launches": ops.launch_counts()}
+        got = {k: v.full_tensor().item() for k, v in metrics.items()}
+        params = [t.cpu() for t in _leaves(gather(new["params"]))]
+    state = placed = new = metrics = None
+    torch.cuda.empty_cache()
+    equal = got == want and all(same_bits(torch, a, b)
+                                for a, b in zip(kept, params))
+    launches = (rows["one_card"]["launches"],
+                rows["one_rank_mesh"]["launches"])
+    print(f"  (a) {MOE_TRAIN_ARCH} train step ({MOE_TRAIN_LAYERS} layers, B "
+          f"{TRAIN_B} x S {TRAIN_S}, {MESH_FLAGS}): one card "
+          f"{rows['one_card']['seconds'] * 1e3:.3f} ms, the one-rank mesh's "
+          f"per-device program {rows['one_rank_mesh']['seconds'] * 1e3:.3f}"
+          f" ms (first calls, not timings); loss {got['loss']:.6f} / "
+          f"{want['loss']:.6f}, grad norm {got['grad_norm']:.6f} / "
+          f"{want['grad_norm']:.6f}, lr_scale {got['lr_scale']:g}; "
+          f"{len(params)} updated params bit for bit: "
+          f"{equal}; K1/K2 {launches[0]['flash_attention']}/"
+          f"{launches[0]['rmsnorm_pipelined']} and "
+          f"{launches[1]['flash_attention']}/"
+          f"{launches[1]['rmsnorm_pipelined']}")
+    require(equal, f"phase 23 (a): the MoE step on the one-rank mesh is not "
+            f"the one-card step's bits: {got} / {want}")
+    require(got["lr_scale"] == 1.0, f"phase 23 (a): lr_scale {got}")
+    require(launches[0] == launches[1] and
+            launches[1]["flash_attention"] > 0 and
+            launches[1]["rmsnorm_pipelined"] > 0,
+            f"phase 23 (a): MoE step launches {launches}")
+    return {"metrics": got, "one_card": rows["one_card"],
+            "one_rank_mesh": rows["one_rank_mesh"], "equal": equal}
+
+
+def mesh_prefill(torch, ops, flags, get_config, init_params,
+                 make_prefill_step):
+    """(a) qwen2-0.5b's prefill at full width (phase 4's B x S) under
+    MESH_FLAGS: one card against the one-rank mesh's per-device program,
+    the logits bit for bit, K1 and K2 launched alike."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.context import mesh_context
+    from repro_torch.parallel.sharding import ShardingRules, place
+    from repro_torch.runtime.steps import shard_step
+    cfg = get_config(ARCH)
+    b, s = MESH_PREFILL
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.
+                           Generator(device="cuda").manual_seed(3),
+                           device="cuda")
+    with flags(**MESH_FLAGS), torch.no_grad():
+        mesh = make_host_mesh(1)
+        with mesh_context(make_host_mesh(1)):
+            ops.reset_launch_counts()
+            want = make_prefill_step(cfg)(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            one = ops.launch_counts()
+        rules = ShardingRules(mesh, cfg)
+        pspecs = rules.param_specs(params)
+        shape = ShapeConfig("prefill", s, b, "prefill")
+        sharded = shard_step(make_prefill_step(cfg, pspecs=pspecs), mesh,
+                             rules.logits_spec(shape))
+        ops.reset_launch_counts()
+        got = sharded(place(params, pspecs, mesh), place(
+            {"tokens": tokens},
+            {"tokens": rules.batch_specs(cfg, shape)["tokens"]}, mesh))
+        torch.cuda.synchronize()
+        mine = ops.launch_counts()
+        got = got.full_tensor()
+    equal = same_bits(torch, got, want)
+    print(f"  (a) {ARCH} prefill B {b} x S {s}: logits bit for bit "
+          f"{equal}; K1/K2 {one['flash_attention']}/"
+          f"{one['rmsnorm_pipelined']} one card, "
+          f"{mine['flash_attention']}/{mine['rmsnorm_pipelined']} on the "
+          f"one-rank mesh")
+    require(equal, "phase 23 (a): prefill logits on the one-rank mesh are "
+            "not the one-card step's bits")
+    require(one == mine and mine["flash_attention"] == cfg.n_layers,
+            f"phase 23 (a): prefill launches {one} / {mine}")
+    return {"equal": equal, "launches": mine}
+
+
+def mesh_cell_program():
+    """(b) MESH_CELL's per-device program captured in a child process
+    behind the fake process group (`dryrun --mesh single`): the roofline's
+    three terms on nvidia_h100_sxm and the collective bytes by kind, LEO's
+    model of the program, not times of the card."""
+    arch, shape, mesh_kind, layers = MESH_CELL
+    out = ROOT / "chiprun_out" / "phase23"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh_kind, "--layers", str(layers),
+           "--hw", "nvidia_h100_sxm", "--device", "cuda", "--force",
+           "--outdir", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    rec = json.loads((out / f"{arch}__{shape}__{mesh_kind}.json"
+                      ).read_text())
+    require(done.returncode == 0 and rec["status"] == "ok",
+            f"phase 23 (b): {rec.get('error')} {done.stderr[-2000:]}")
+    rl = rec["roofline"]
+    print(f"  (b) {rec['label']} ({rec['reduced']}, {rec['chips']} ranks of "
+          f"the fake group, child {seconds:.1f} s, capture "
+          f"{rec['compile_seconds']:.1f} s): LEO's roofline model on "
+          f"nvidia_h100_sxm, not card times: compute "
+          f"{rl['compute_s'] * 1e3:.3f} ms, memory {rl['memory_s'] * 1e3:.3f}"
+          f" ms, collective {rl['collective_s'] * 1e3:.3f} ms; collective "
+          f"bytes a device by kind {rl['collective_breakdown']}; arguments "
+          f"{rec['memory']['argument_size_in_bytes']} bytes a device")
+    require(rl["collective_bytes"] > 0, "phase 23 (b): no collective")
+    return {"record": {k: rec[k] for k in ("label", "chips", "reduced",
+                                           "memory", "compile_seconds")},
+            "roofline": {k: rl[k] for k in (
+                "compute_s", "memory_s", "collective_s", "collective_bytes",
+                "collective_breakdown", "hlo_flops", "hlo_bytes")},
+            "seconds": seconds}
+
+
+def mesh_rank(rank, port, out_path):
+    """(c) One of four NCCL ranks, one card each: qwen2-0.5b at full width
+    on MESH_RANKS_LAYERS layers in f32, one train step on a (2, 2) mesh,
+    its first moments gathered (0.1 x the clipped gradient after a step
+    from zero moments); rank 0 also takes the one-card step on the kernel
+    path and on the forced-plain path and writes the largest gaps to
+    `out_path`."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.flags import flags
+    from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                               gather, place)
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.runtime import TrainOptions
+    from repro_torch.runtime.steps import shard_step, train_specs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    try:
+        cfg = replace(get_config(ARCH), n_layers=MESH_RANKS_LAYERS,
+                      dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                               generator=gen, device="cuda")
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        options = TrainOptions(warmup_steps=1)
+
+        def fresh():
+            st = init_train_state(
+                cfg, torch.Generator(device="cuda").manual_seed(0))
+            st["step"].fill_(3)
+            return st
+
+        mesh = make_host_mesh(2)
+        rules = ShardingRules(mesh, cfg)
+        specs = train_specs(rules, fresh())
+        step = shard_step(
+            make_train_step(cfg, options=options, specs=specs),
+            mesh, (specs, {k: PartitionSpec() for k in
+                           ("loss", "grad_norm", "lr_scale")}))
+        bspec = PartitionSpec(rules.dp_spec, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(place(fresh(), specs, mesh),
+                            place(batch, {"tokens": bspec, "labels": bspec},
+                                  mesh))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # after one AdamW step from zero moments mu is 0.1 x the clipped
+        # gradient: phase 15's rule on the gradients, leaf by leaf
+        got = [t for t in _leaves(gather(new["opt"]["mu"]))]
+        got_m = {k: v.full_tensor().item() for k, v in metrics.items()}
+        if rank == 0:
+            one = make_train_step(cfg, options=options)
+            kernel, km = one(fresh(), batch)
+            with flags(force_plain=True):
+                plain, pm = one(fresh(), batch)
+            kl, pl = list(_leaves(kernel["opt"]["mu"])), \
+                list(_leaves(plain["opt"]["mu"]))
+            spread = max((a - b).abs().max().item() for a, b in zip(kl, pl))
+            gap = max((a - b).abs().max().item() for a, b in zip(got, kl))
+            Path(out_path).write_text(json.dumps({
+                "seconds": seconds, "metrics": got_m,
+                "one_card": {k: v.item() for k, v in km.items()},
+                "plain": {k: v.item() for k, v in pm.items()},
+                "gap": gap, "spread": spread}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_four_ranks(torch):
+    """(c) where four cards exist: four spawned NCCL ranks (`mesh_rank`),
+    their step's gradients (as its first moments) within MESH_RANKS_FACTOR
+    times the one-card right paths' spread (kernel against forced-plain)
+    of the one-card step's, leaf by leaf, phase 15's f32 rule."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"  (c) 4-rank: not run, {n} card(s)")
+        return {"run": False, "cards": n}
+    import torch.multiprocessing as mp
+    out = ROOT / "chiprun_out" / "phase23" / "four_ranks.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, str(out)))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    require(all(p.exitcode == 0 for p in procs),
+            f"phase 23 (c): rank exit codes {[p.exitcode for p in procs]}")
+    res = json.loads(out.read_text())
+    limit = MESH_RANKS_FACTOR * res["spread"]
+    print(f"  (c) 4 NCCL ranks, (2, 2), {ARCH} f32 on {MESH_RANKS_LAYERS} "
+          f"layers, B {TRAIN_B} x S {TRAIN_S}: step {res['seconds'] * 1e3:.3f}"
+          f" ms (first call), loss {res['metrics']['loss']:.7f} / one card "
+          f"{res['one_card']['loss']:.7f}; the gradients' (0.1 x, as first "
+          f"moments) largest gap to the one-card "
+          f"kernel path {res['gap']:.3e}, limit {MESH_RANKS_FACTOR:g} x the "
+          f"right paths' spread {res['spread']:.3e} = {limit:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    require(res["gap"] <= limit, f"phase 23 (c): gap {res['gap']} > "
+            f"{limit}")
+    return {"run": True, **res, "limit": limit}
+
+
+def run_mesh(torch, ops, flags, get_config, init_params, make_prefill_step,
+             runtime, data):
+    """Phase 23: (a) on a one-rank NCCL group, (b), (c)."""
+    t_phase = time.perf_counter()
+    dist = one_rank_group(torch)
+    try:
+        moe = mesh_moe_step(torch, ops, flags, get_config, runtime, data)
+        prefill = mesh_prefill(torch, ops, flags, get_config, init_params,
+                               make_prefill_step)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+    cell = mesh_cell_program()
+    ranks = mesh_four_ranks(torch)
+    return {"moe_step": moe, "prefill": prefill, "cell": cell,
+            "four_ranks": ranks, "seconds_a": t_a,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
@@ -5030,6 +5409,16 @@ def main(argv=None) -> int:
                               moe_module, runtime, optim, data, train_driver)
     print(f"  phase 22: {moe_train['seconds']:.1f} s")
 
+    # phase 23
+    print(f"phase 23: the per-device program of a mesh: (a) "
+          f"{MOE_TRAIN_ARCH}'s train step and {ARCH}'s prefill on a "
+          f"one-rank NCCL group against one card, (b) {MESH_CELL[0]} "
+          f"{MESH_CELL[1]}'s program on the {MESH_CELL[2]} production "
+          f"mesh, (c) four ranks where four cards exist ({smi})")
+    meshed = run_mesh(torch, ops, flags, get_config, init_params,
+                      make_prefill_step, runtime, data)
+    print(f"  phase 23: {meshed['seconds']:.1f} s")
+
     main_fa, main_rms = fa[0], rms[2]  # bf16 at qwen2-0.5b's prefill
     main_fa32 = fa[1]  # K1's f32 body at the same shape
     main_scan = scan[0]  # f32 a/bx/c at hymba's prefill shape
@@ -5041,7 +5430,8 @@ def main(argv=None) -> int:
                      for part in ("prefill", "serve")) + tuple(
                          fused_ssm["bf16"].values()) + tuple(dry["cells"]) + \
         tuple(row for c in hill["cells"].values() for row in c["variants"]) \
-        + (moe_train["train"],) + tuple(moe_train["driver"]["runs"].values())
+        + (moe_train["train"],) + tuple(moe_train["driver"]["runs"].values()) \
+        + (meshed["moe_step"]["one_rank_mesh"], meshed["prefill"])
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -5144,7 +5534,7 @@ def main(argv=None) -> int:
         "train_driver": driven, "upper_tiers": upper,
         "slice_flash_attention": slice_fa, "slice_rmsnorm": slice_rms,
         "slice": sliced, "fused_ssm": fused_ssm, "dryrun": dry,
-        "hillclimb": hill, "moe_train": moe_train,
+        "hillclimb": hill, "moe_train": moe_train, "mesh": meshed,
         "wall_seconds": time.perf_counter() - wall0,
         "kernels": kernels}, indent=1))
     print(f"chip_smoke: every phase passed in "

@@ -38,7 +38,18 @@ class CheckpointManager:
     # -- save -----------------------------------------------------------------
 
     def save(self, step: int, state) -> None:
+        """Write `state` as step `step`.  A state of DTensors (a train
+        state placed on a mesh) is gathered to full tensors, every rank
+        taking part, and rank 0 writes them: the same bytes as a one-card
+        checkpoint."""
         self.wait()
+        if _sharded(state):
+            import torch.distributed as dist
+
+            from ..parallel.sharding import gather
+            state = gather(state)
+            if dist.get_rank() != 0:
+                return
         if self.async_saves:
             # a host copy of every leaf: `.cpu()` of a CPU tensor is the
             # tensor itself, and the train step updates its state in place
@@ -75,9 +86,29 @@ class CheckpointManager:
 
     # -- restore -----------------------------------------------------------------
 
-    def restore_latest(self, like, device=None) -> Tuple[Any, int]:
+    def restore_latest(self, like, device=None,
+                       shardings=None) -> Tuple[Any, int]:
+        """The latest valid checkpoint in `like`'s structure.  With
+        `shardings`, (specs, mesh), every rank reads the full tensors and
+        keeps its shards of them (`parallel/sharding.py::place`), as the
+        reference's `restore_latest(state, shardings=...)` lays each array
+        out by its sharding."""
         self.wait()
-        return restore_checkpoint(self.directory, like, device=device)
+        if shardings is None:
+            return restore_checkpoint(self.directory, like, device=device)
+        import torch.distributed as dist
+
+        from ..parallel.sharding import place
+        specs, mesh = shardings
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's last write is on disk
+        full, step = restore_checkpoint(self.directory, like, device=device)
+        return place(full, specs, mesh), step
 
     def has_checkpoint(self) -> bool:
         return bool(list_checkpoints(self.directory))
+
+
+def _sharded(state) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(v, DTensor) for _, v in _flatten(state))

@@ -156,6 +156,13 @@ _TRANSCENDENTAL = {
     "log_sigmoid_forward",
 }
 
+# `torch.ops._c10d_functional` collectives -> the reference's HLO opcodes
+# (`wait_tensor` is no instruction: its users read the collective)
+_COLLECTIVES = {"all_reduce": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+
 _PACKAGE = Path(__file__).resolve().parent.parent
 _SELF = Path(__file__).resolve()
 
@@ -389,6 +396,10 @@ class _Recorder(TorchDispatchMode):
     # -- the hook ---------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            raise RuntimeError(
+                f"capture: {func} on a DTensor; capture a mesh's per-device "
+                f"program on its local shards (`spmd.program`)")
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.record(func, args, kwargs, out)
@@ -414,20 +425,36 @@ class _Recorder(TorchDispatchMode):
         if trip is not None and not trip.recording:
             trip.see(func, flat_in, flat_out, self.open_kernel())
             return
+        name = _base_name(func)
+        if _is_c10d(func) and name == "wait_tensor":
+            # the wait moves nothing: its users read the collective itself,
+            # so a stall on the value follows one edge back to it
+            self.bind(flat_out[0], self.name_of(flat_in[0]))
+            if trip is not None:
+                trip.see(func, flat_in, flat_out, self.open_kernel())
+            return
         operands = tuple(self.name_of(t) for t in flat_in)
         op_name, path, line = self.where()
-        cls = _op_class(func)
         first = flat_out[0]
-        name = _base_name(func)
+        if _is_c10d(func):
+            if name not in _COLLECTIVES:
+                raise NotImplementedError(
+                    f"capture: no opcode for the collective {func}")
+            cls, opcode = OpClass.COLLECTIVE, _COLLECTIVES[name]
+        else:
+            cls, opcode = _op_class(func), _OPCODE.get(name, name)
         instr = Instruction(
             name=f"v{next(self.counter)}",
-            opcode=_OPCODE.get(name, name), op_class=cls,
+            opcode=opcode, op_class=cls,
             shape=_shape(first), operands=operands,
             computation=self.comp.name, index=0, op_name=op_name,
             source_file=path, source_line=line)
         if name in _SCATTERS:
             instr.attributes["aten"] = name
-        _annotate(instr, func, flat_in)
+        if cls is OpClass.COLLECTIVE:
+            _annotate_collective(instr, name, args, flat_in)
+        else:
+            _annotate(instr, func, flat_in)
         self.comp.add(instr)
         self.bind(first, instr.name)
         for i, extra in enumerate(flat_out[1:], start=1):
@@ -605,6 +632,42 @@ def _annotate(instr: Instruction, func, inputs: List[torch.Tensor]) -> None:
         instr.bytes_read = _gather_bytes(name, inputs, instr.shape.byte_size)
     elif name in _SCATTERS:
         instr.bytes_read = instr.bytes_written = _scatter_bytes(name, inputs)
+
+
+def _is_c10d(func) -> bool:
+    return getattr(func, "namespace", "") == "_c10d_functional"
+
+
+def _group_size(name: str) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name).size()
+
+
+def _annotate_collective(instr: Instruction, name: str, args,
+                         inputs: List[torch.Tensor]) -> None:
+    """Bytes of a collective, by `repro/core/hlo_parser.py:444-466`: the
+    operand read and the output written in HBM, and on the wire per
+    participating device with a ring over its group of n: all-reduce
+    `2 * in * (n - 1) / n`, all-gather `out * (n - 1) / n`, reduce-scatter
+    and all-to-all `in * (n - 1) / n`; none on a group of one."""
+    if name == "all_reduce":
+        n = _group_size(args[2])
+    elif name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        n = int(args[-2])
+    else:
+        n = _group_size(args[3])
+    in_bytes = float(sum(_shape(t).byte_size for t in inputs))
+    out_bytes = float(instr.shape.byte_size)
+    instr.bytes_read, instr.bytes_written = in_bytes, out_bytes
+    instr.attributes["group_size"] = str(n)
+    if n <= 1:
+        instr.comm_bytes = 0.0
+    elif name == "all_reduce":
+        instr.comm_bytes = 2.0 * in_bytes * (n - 1) / n
+    elif name == "all_gather_into_tensor":
+        instr.comm_bytes = out_bytes * (n - 1) / n
+    else:
+        instr.comm_bytes = in_bytes * (n - 1) / n
 
 
 def _gather_bytes(name: str, inputs: List[torch.Tensor],

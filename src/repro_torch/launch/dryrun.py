@@ -2,41 +2,43 @@
 (the port of `repro.launch.dryrun`).
 
 For each cell this:
-  1. builds the mesh: the card's own (`--mesh host`, `make_host_mesh`), or
+  1. builds the mesh: the ranks' own (`--mesh host`, `make_host_mesh`), or
      the reference's production meshes (16x16 single-pod, 2x16x16
-     multi-pod), which have no devices behind them here;
-  2. on a mesh whose devices exist, captures the cell's step
-     (`make_train_step`, `make_prefill_step` or `make_serve_step`) with
-     `core/torch_frontend.capture` on `launch/specs.py`'s meta stand-ins at
-     the per-device shapes, on the mesh's device: nothing is allocated and
-     nothing runs;
-  3. records the per-device argument and output bytes under
-     `parallel/sharding.py`'s specs in place of XLA's `memory_analysis()`
-     (its temp and code sizes have no counterpart without a compiler and
-     are recorded as absent, `None`, never estimated);
-  4. derives the roofline terms from the captured Module with the port's
-     `core/roofline.compute_roofline`, and
+     multi-pod) behind PyTorch's fake process group of their 256 (512)
+     ranks, in this one process and for the length of the cell
+     (`mesh.fake_production_mesh`);
+  2. captures the cell's step with `core/torch_frontend.capture` on
+     `launch/specs.py`'s meta stand-ins: rank 0's program of the step
+     (`make_train_step`, `make_prefill_step` or `make_serve_step`) on its
+     shards' shapes under the sharding rules, its collectives recorded as
+     the reference's HLO collectives: nothing is allocated, nothing is
+     sent and nothing runs;
+  3. records the per-device argument and output bytes in place of XLA's
+     `memory_analysis()` (the argument bytes those of the captured
+     program's parameters, checked equal to the specs'; its temp and code
+     sizes have no counterpart without a compiler and are recorded as
+     absent, `None`, never estimated), and each argument tree's bytes a
+     device under the specs (`argument_bytes`, of the uncut cell where
+     `--layers` cuts the depth; a prefill program takes no labels,
+     `program_inputs`), and whether they fit the `--hw` backend;
+  4. derives the roofline terms, the collective term included, from the
+     captured Module with the port's `core/roofline.compute_roofline`, and
   5. optionally runs LEO's analysis of the Module (--analyze).
-
-PyTorch on one card has no partitioner: the per-device program of an
-N-device mesh, with its collectives, is not built.  On the production
-meshes a cell is recorded `"status": "specs_only"`: each argument tree's
-bytes on a device under the specs (exact: each leaf's shard shape times
-its element size), whether they fit the `--hw` backend's memory, and why
-there is no program.
 
 Artifacts land in experiments/dryrun/<arch>__<shape>__<mesh>.json (plus
 the captured Module, a gzipped pickle, with --save-hlo).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-      --shape all --mesh both
+      --shape all --mesh both --layers 1 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
       --shape decode_32k --mesh host --analyze --hw nvidia_h100_sxm
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gzip
 import json
 import math
@@ -47,10 +49,6 @@ import traceback
 from typing import Any, Dict, Optional, Tuple
 
 from torch.utils._pytree import tree_leaves
-
-NO_PARTITIONER = ("no partitioner: the per-device program of an {n}-device "
-                  "mesh is not built on one card")
-
 
 def argument_trees(cfg, shape, rules, inputs) -> Dict[str, Tuple[Any, Any]]:
     """(tree, specs) of each argument tree of the cell's step, by name:
@@ -85,20 +83,64 @@ def argument_bytes(cfg, shape, mesh, inputs) -> Dict[str, int]:
             argument_trees(cfg, shape, rules, inputs).items()}
 
 
-def cell_program(cfg, shape, inputs, device, opts=None):
+def program_inputs(shape, inputs):
+    """`inputs` as the cell's program takes them: a prefill program reads
+    no labels and takes none, as the reference's compiled step keeps only
+    the arguments it reads (`jax.jit`'s `keep_unused=False`)."""
+    if shape.kind != "prefill":
+        return inputs
+    return {**inputs, "batch": {k: v for k, v in inputs["batch"].items()
+                                if k != "labels"}}
+
+
+def cell_program(cfg, shape, inputs, device, opts=None, mesh=None):
     """(step, args): the cell's step and its arguments in call order
     (`inputs` from `specs.input_specs`, or real tensors of the same
-    structure)."""
+    structure; a prefill batch's labels left out, `program_inputs`).  On
+    `mesh` the step is each rank's program under the mesh's sharding rules
+    and the arguments are rank 0's shards: meta stand-ins of their shapes
+    where the mesh cuts a leaf, the leaf itself where it does not."""
+    import torch
+
+    from ..parallel.sharding import ShardingRules, _at, shard_shape, \
+        tree_map_with_path
     from ..runtime.steps import (make_prefill_step, make_serve_step,
                                  make_train_step)
+    inputs = program_inputs(shape, inputs)
+    specs = {}
+    if mesh is not None:
+        trees = argument_trees(cfg, shape, ShardingRules(mesh, cfg), inputs)
+        specs = {name: s for name, (_, s) in trees.items()}
+
+        def shard(name, path, t):
+            local = shard_shape(_at(specs[name], path), tuple(t.shape), mesh)
+            if local == tuple(t.shape):
+                return t
+            if t.device.type != "meta":
+                raise ValueError(f"cell_program: the {mesh.shape} mesh cuts "
+                                 f"{name} leaf {path} {tuple(t.shape)}; "
+                                 f"hand its shard or a meta stand-in")
+            return torch.empty(local, dtype=t.dtype, device="meta")
+
+        shards = {name: tree_map_with_path(
+            lambda path, t, name=name: shard(name, path, t), tree)
+            for name, (tree, _) in trees.items()}
+        if shape.kind == "train":
+            inputs = {"state": {k: shards[k] for k in
+                                ("params", "opt", "step")},
+                      "batch": shards["batch"]}
+        else:
+            inputs = {**inputs, **shards}
     batch = inputs["batch"]
     if shape.kind == "train":
-        return (make_train_step(cfg, options=opts),
+        return (make_train_step(cfg, options=opts, specs=specs or None),
                 (inputs["state"], batch))
     if shape.kind == "prefill":
         return (make_prefill_step(cfg, chunk=min(512, shape.seq_len),
-                                  device=device), (inputs["params"], batch))
-    return (make_serve_step(cfg),
+                                  device=device, pspecs=specs.get("params")),
+                (inputs["params"], batch))
+    return (make_serve_step(cfg, pspecs=specs.get("params"),
+                            sspecs=specs.get("decode_state")),
             (inputs["params"], inputs["decode_state"], batch["token"],
              batch["pos"]))
 
@@ -116,28 +158,36 @@ def cell_options(cfg, shape, mesh):
 
 
 def lower_cell(cfg, shape, mesh, opts=None, inputs=None, loops=True):
-    """Capture one (arch, shape, mesh) cell on a mesh whose devices exist.
-    Returns (module, memory, seconds): the captured `Module`, the memory
-    record (per-device argument and output bytes; temp and code sizes
-    None) and the seconds the capture took.  `inputs` replaces
-    `specs.input_specs(cfg, shape)`; `loops=False` records the train
-    step's micro-batches trip by trip instead of as one `while`."""
+    """Capture one (arch, shape, mesh) cell: rank 0's program of the
+    cell's step (`runtime/steps.py`), with its collectives, on meta
+    stand-ins of the rank's shards; on a mesh of one device the step
+    itself.  The mesh has devices behind it: the card's, a process
+    group's, or the fake group of `mesh.fake_production_mesh`.  Returns
+    (module, memory, seconds): the captured `Module`, the memory record
+    (per-device argument and output bytes; temp and code sizes None) and
+    the seconds the capture took.  The argument bytes are those of the
+    captured program's parameters, and must equal the specs' bytes.
+    `inputs` replaces `specs.input_specs(cfg, shape)`; `loops=False`
+    records the train step's micro-batches trip by trip instead of as one
+    `while`."""
     from ..core import capture
+    from ..parallel import spmd
     from ..parallel.context import mesh_context
     from . import specs as S
 
     if mesh.devices is None:
-        raise RuntimeError(NO_PARTITIONER.format(n=mesh.size))
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"lower_cell on a {mesh.shape} mesh of devices needs "
-            f"torch.distributed process groups, a later slice of the port")
+        raise RuntimeError(f"lower_cell: the {mesh.shape} mesh has no "
+                           f"devices and no process group behind it")
+    if mesh.size != 1 and mesh.device_mesh is None:
+        raise RuntimeError(f"lower_cell: the {mesh.shape} mesh has no "
+                           f"DeviceMesh to run its per-device program on")
     if opts is None:
         opts = cell_options(cfg, shape, mesh)
     if inputs is None:
         inputs = S.input_specs(cfg, shape)
-    args_bytes = sum(argument_bytes(cfg, shape, mesh, inputs).values())
-    step, args = cell_program(cfg, shape, inputs, mesh.device, opts)
+    args_bytes = sum(argument_bytes(cfg, shape, mesh, program_inputs(
+        shape, inputs)).values())
+    step, args = cell_program(cfg, shape, inputs, mesh.device, opts, mesh)
     outputs = []
 
     def traced(*a):
@@ -145,11 +195,22 @@ def lower_cell(cfg, shape, mesh, opts=None, inputs=None, loops=True):
         outputs.append(out)
         return out
 
+    # a decode batch smaller than the data axes (batch-1 long context):
+    # every rank serves all its slots
+    from ..parallel.sharding import ShardingRules
+    small = shape.kind == "decode" and shape.global_batch < math.prod(
+        mesh.shape[a] for a in ShardingRules(mesh, cfg).dp_axes)
     t0 = time.time()
-    with mesh_context(mesh):
+    with mesh_context(mesh), spmd.program(mesh, () if small else None):
         module = capture(traced, *args, name=f"{shape.kind}_step",
                          device=mesh.device, loops=loops)
     secs = time.time() - t0
+    captured = sum(i.shape.byte_size for i in module.computations[
+        module.entry].instructions if i.opcode == "parameter")
+    if captured != args_bytes:
+        raise RuntimeError(f"lower_cell: the captured program's arguments "
+                           f"are {captured} bytes a device, the specs' "
+                           f"{args_bytes}")
     out_bytes = sum(t.numel() * t.element_size()
                     for t in tree_leaves(outputs[0])
                     if hasattr(t, "element_size"))
@@ -208,32 +269,24 @@ def get_service(outdir: str):
     return svc
 
 
-def specs_only(cfg, shape, mesh, label: str, hw) -> dict:
-    """The record of a cell on a mesh with no devices behind it: each
-    argument tree's per-device bytes under the specs, and whether they fit
-    `hw`'s memory."""
-    from . import specs as S
-    per_tree = argument_bytes(cfg, shape, mesh, S.input_specs(cfg, shape))
-    total = sum(per_tree.values())
-    return {"label": label, "status": "specs_only", "chips": mesh.size,
-            "reason": NO_PARTITIONER.format(n=mesh.size),
-            "argument_bytes": per_tree, "argument_bytes_total": total,
-            "hw": hw.name, "hbm_bytes": hw.hbm_bytes,
-            "fits": total <= hw.hbm_bytes}
-
-
 def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
              analyze: bool = False, save_hlo: bool = False,
              hw_name: str = "tpu_v5e", force: bool = False,
-             model_flags: Optional[dict] = None, device="cuda") -> dict:
+             model_flags: Optional[dict] = None, device="cuda",
+             layers: int = 0) -> dict:
     """One cell's record, written to `<outdir>/<label>.json`.  `mesh_kind`
-    "host" is the card's own mesh (`device`'s), "single" and "multi" the
-    production meshes."""
+    "host" is the mesh of `device`'s ranks (`make_host_mesh`), "single"
+    and "multi" the production meshes, behind a fake process group of
+    their 256 (512) ranks for the length of the cell, whose per-device
+    program is captured for `device`.  `layers` keeps the config's first
+    N layers (the record's `reduced`); `argument_bytes` are always the
+    uncut cell's, each tree's bytes a device under the specs."""
     from ..configs import get_config, get_shape, model_flops
     from ..core import get_backend
     from ..core.roofline import compute_roofline
     from ..models.flags import flags as flags_ctx
-    from .mesh import make_host_mesh, make_production_mesh
+    from . import specs as S
+    from .mesh import fake_production_mesh, make_host_mesh
 
     cfg = get_config(arch)
     shape = get_shape(shape_name)
@@ -253,38 +306,44 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
         return result
 
     try:
-        mesh = make_host_mesh(1, device=device) if mesh_kind == "host" \
-            else make_production_mesh(multi_pod=(mesh_kind == "multi"))
-        chips = mesh.size
+        mesh_cm = contextlib.nullcontext(make_host_mesh(1, device=device)) \
+            if mesh_kind == "host" else fake_production_mesh(
+                multi_pod=(mesh_kind == "multi"), device=device)
         hw = get_backend(hw_name).hw
-        with flags_ctx(**(model_flags or {})):
-            if mesh.devices is None:
-                result = specs_only(cfg, shape, mesh, label, hw)
-                print(f"[specs] {label}: "
-                      f"{result['argument_bytes_total'] / 2**30:.3f} GiB "
-                      f"of arguments a device, "
-                      f"{'fits' if result['fits'] else 'does not fit'} "
-                      f"{hw.name}")
-            else:
-                module, mem, secs = lower_cell(cfg, shape, mesh)
-                rl = compute_roofline(
-                    module, hw, chips=chips, label=label,
-                    model_flops=model_flops(cfg, shape))
-                result = {"label": label, "status": "ok", "chips": chips,
-                          "compile_seconds": secs, "roofline": rl.to_dict(),
-                          "memory": mem}
-                if analyze:
-                    diag = get_service(outdir).diagnose(module,
-                                                        backend=hw_name)
-                    result["leo"] = diag.to_dict()
-                if save_hlo:
-                    os.makedirs(outdir, exist_ok=True)
-                    with gzip.open(os.path.join(
-                            outdir, label + ".module.pkl.gz"), "wb") as f:
-                        pickle.dump(module, f)
-                print(f"[ok] {label}: capture={secs:.1f}s  "
-                      f"{rl.summary_row()}")
-                print(f"     memory: {mem}")
+        with flags_ctx(**(model_flags or {})), mesh_cm as mesh:
+            chips = mesh.size
+            per_tree = argument_bytes(cfg, shape, mesh, program_inputs(
+                shape, S.input_specs(cfg, shape)))
+            run_cfg, reduced = cfg, []
+            if layers and layers < cfg.n_layers:
+                reduced.append(f"n_layers {cfg.n_layers} -> {layers}")
+                run_cfg = dataclasses.replace(cfg, n_layers=layers)
+            # the uncut config's micro-batches: a depth cut keeps the loop
+            opts = cell_options(cfg, shape, mesh)
+            module, mem, secs = lower_cell(run_cfg, shape, mesh, opts=opts)
+            rl = compute_roofline(
+                module, hw, chips=chips, label=label,
+                model_flops=model_flops(run_cfg, shape))
+            result = {"label": label, "status": "ok", "chips": chips,
+                      "compile_seconds": secs, "roofline": rl.to_dict(),
+                      "memory": mem, "argument_bytes": per_tree,
+                      "argument_bytes_total": sum(per_tree.values()),
+                      "hbm_bytes": hw.hbm_bytes,
+                      "fits": sum(per_tree.values()) <= hw.hbm_bytes}
+            if reduced:
+                result["reduced"] = reduced
+            if analyze:
+                diag = get_service(outdir).diagnose(module,
+                                                    backend=hw_name)
+                result["leo"] = diag.to_dict()
+            if save_hlo:
+                os.makedirs(outdir, exist_ok=True)
+                with gzip.open(os.path.join(
+                        outdir, label + ".module.pkl.gz"), "wb") as f:
+                    pickle.dump(module, f)
+            print(f"[ok] {label}: capture={secs:.1f}s  "
+                  f"{rl.summary_row()}")
+            print(f"     memory: {mem}")
     except Exception as e:  # noqa: BLE001 - report failures as cell results
         result = {"label": label, "status": "error",
                   "error": f"{type(e).__name__}: {e}",
@@ -305,8 +364,13 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both", "host"],
-                    help="host: the card's own mesh; single, multi: "
-                         "the production meshes, specs only")
+                    help="host: the ranks' own mesh; single, multi: the "
+                         "production meshes behind a fake process group")
+    ap.add_argument("--device", default="cuda",
+                    help="the device the per-device program is captured "
+                         "for (cpu: the plain paths, no kernel regions)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep each config's first N layers (0: all)")
     ap.add_argument("--outdir", default="experiments/dryrun")
     ap.add_argument("--analyze", action="store_true",
                     help="run LEO root-cause analysis per cell")
@@ -340,7 +404,8 @@ def main(argv=None) -> None:
                 r = run_cell(arch, shape_name, mesh_kind, args.outdir,
                              analyze=args.analyze, save_hlo=args.save_hlo,
                              hw_name=args.hw, force=args.force,
-                             model_flags=model_flags)
+                             model_flags=model_flags, device=args.device,
+                             layers=args.layers)
                 if r.get("status") == "error":
                     failures += 1
     if args.metrics_out:

@@ -17,13 +17,14 @@ port's unfused SSM form runs K4's first entry (`ssm_scan`) on CUDA tensors
 hold one fused region a layer where the reference's unfused form holds
 none; the cells mirror the reference's flags all the same.
 
-`run_variant` captures a variant with `launch/dryrun.py::lower_cell` on
-the card's own mesh (`--mesh host`, `make_host_mesh(1)`: the step on meta
-stand-ins, the train step's micro-batches one `while` of their trip count,
-`core/torch_frontend.loop`).  On the production meshes (`single`,
-`multi`) there is no per-device program without process groups, and the
-record is `dryrun.specs_only`'s.  Results land in
-experiments/perf/<arch>__<shape>__<variant>.json.
+`run_variant` captures a variant with `launch/dryrun.py::lower_cell`:
+on the card's own mesh (`--mesh host`, `make_host_mesh(1)`) the step on
+meta stand-ins, and on the production meshes (`single`, `multi`) rank 0's
+per-device program behind a fake process group of their ranks
+(`mesh.fake_production_mesh`), collectives and all, as the reference
+compiles its cells on them; the train step's micro-batches are one
+`while` of their trip count (`core/torch_frontend.loop`).  Results land
+in experiments/perf/<arch>__<shape>__<variant>.json.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell qwen2 \\
       --mesh host --backend nvidia_h100_sxm
@@ -35,6 +36,7 @@ experiments/perf/<arch>__<shape>__<variant>.json.
       --backend nvidia_h100_sxm
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -97,7 +99,8 @@ def run_variant(arch, shape_name, name, model_flags, opt_overrides,
                 force=False, device="cuda", layers=None):
     """One variant's record, written to `<outdir>/<label>.json` (read back
     unless `force`).  `mesh_kind` "host" captures the step on the card's
-    own mesh (`device`'s); "single" and "multi" record `specs_only`.
+    own mesh (`device`'s); "single" and "multi" capture rank 0's
+    per-device program on the production meshes, for `device`.
     `arch` names a config of `configs` (or is an `ArchConfig`, such as a
     smoke config, whose name goes into the label); `shape_name` names a
     shape (or is a `ShapeConfig`); `layers` cuts the config's depth, and
@@ -113,8 +116,8 @@ def run_variant(arch, shape_name, name, model_flags, opt_overrides,
     from ..core.roofline import compute_roofline
     from ..models.flags import flags as flags_ctx
     from ..runtime.steps import TrainOptions, default_microbatch
-    from .dryrun import get_service, lower_cell, specs_only
-    from .mesh import make_host_mesh, make_production_mesh
+    from .dryrun import get_service, lower_cell
+    from .mesh import fake_production_mesh, make_host_mesh
 
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = shape_name if isinstance(shape_name, ShapeConfig) \
@@ -129,19 +132,16 @@ def run_variant(arch, shape_name, name, model_flags, opt_overrides,
     if layers:
         reduced.append(f"n_layers {cfg.n_layers} -> {layers}")
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    mesh = make_host_mesh(1, device=device) if mesh_kind == "host" \
-        else make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    chips = mesh.size
+    mesh_cm = contextlib.nullcontext(make_host_mesh(1, device=device)) \
+        if mesh_kind == "host" else fake_production_mesh(
+            multi_pod=(mesh_kind == "multi"), device=device)
     hw = get_backend(hw_name).hw
     result = {"label": label, "variant": name, "flags": model_flags,
               "options": opt_overrides}
     if reduced:
         result["reduced"] = reduced
-    if mesh.devices is None:
-        result.update(specs_only(cfg, shape, mesh, label, hw))
-        result["variant"] = name
-        print(f"[{name}] {label}: specs only ({result['reason']})")
-    else:
+    with mesh_cm as mesh:
+        chips = mesh.size
         dp = chips // mesh.shape["model"]
         # the uncut config's count: a depth cut keeps the cell's loop
         defaults = dict(microbatch=default_microbatch(
@@ -150,24 +150,24 @@ def run_variant(arch, shape_name, name, model_flags, opt_overrides,
         opts = TrainOptions(**defaults)
         with flags_ctx(**model_flags):
             module, mem, secs = lower_cell(cfg, shape, mesh, opts=opts)
-        rl = compute_roofline(module, hw, chips=chips, label=label,
-                              model_flops=model_flops(cfg, shape))
-        result.update({"microbatch": opts.microbatch,
-                       "compile_seconds": secs, "roofline": rl.to_dict(),
-                       "memory": mem, "kernel_regions": module.kernel_calls,
-                       "instructions": sum(
-                           1 for _ in module.all_instructions())})
-        if analyze:
-            rep = get_service(outdir).diagnose(module,
-                                               backend=hw_name).to_dict()
-            result["leo"] = {
-                "top_stalls": rep["top_stalls"][:3],
-                "root_causes": rep["root_causes"][:5],
-                "self_blame": rep["self_blame"][:3],
-                "recommendations": rep["recommendations"][:4],
-                "estimated_step_seconds": rep["estimated_step_seconds"],
-            }
-        print(f"[{name}] {rl.summary_row()}")
+    rl = compute_roofline(module, hw, chips=chips, label=label,
+                          model_flops=model_flops(cfg, shape))
+    result.update({"microbatch": opts.microbatch,
+                   "compile_seconds": secs, "roofline": rl.to_dict(),
+                   "memory": mem, "kernel_regions": module.kernel_calls,
+                   "instructions": sum(
+                       1 for _ in module.all_instructions())})
+    if analyze:
+        rep = get_service(outdir).diagnose(module,
+                                           backend=hw_name).to_dict()
+        result["leo"] = {
+            "top_stalls": rep["top_stalls"][:3],
+            "root_causes": rep["root_causes"][:5],
+            "self_blame": rep["self_blame"][:3],
+            "recommendations": rep["recommendations"][:4],
+            "estimated_step_seconds": rep["estimated_step_seconds"],
+        }
+    print(f"[{name}] {rl.summary_row()}")
     os.makedirs(outdir, exist_ok=True)
     with open(path, "w") as f:
         json.dump(result, f, indent=2)
@@ -371,12 +371,13 @@ def main(argv=None):
     ap.add_argument("--cell", choices=sorted(CELLS))
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "host"],
-                    help="host: the card's own mesh; single, multi: the "
-                         "production meshes, specs only")
+                    help="host: the card's own mesh; single, multi: rank "
+                         "0's program on the production meshes")
     ap.add_argument("--outdir", default="experiments/perf")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="the host mesh's device (cpu: the tests)")
+                    help="the device the step is captured for (cpu: the "
+                         "tests)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config's depth to this many layers")
     ap.add_argument("--smoke", action="store_true",

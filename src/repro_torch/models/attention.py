@@ -29,6 +29,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.torch_frontend import kernel_call
 from ..kernels.flash_attention import flash_attention
+from ..parallel import spmd
 from .flags import get_flags
 from .layers import apply_rope, linear, rmsnorm, rope_cos_sin
 
@@ -99,11 +100,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     length_mask: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, length_mask: torch.Tensor,
+                     seq_axes=()) -> torch.Tensor:
     """One-token attention against a cache.
 
-    q (B,H,hd); caches (B,S,Kv,hd); length_mask (B,S) bool."""
+    q (B,H,hd); caches (B,S,Kv,hd); length_mask (B,S) bool.  `seq_axes`:
+    the mesh axes the cache's positions are cut over in a per-device
+    program; the softmax is then distributed, its max, its sum and the
+    weighted values each reduced over them."""
     b, h, hd = q.shape
     kv_heads = k_cache.shape[2]
     groups = h // kv_heads
@@ -111,6 +115,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.reshape(b, kv_heads, groups, hd) * scale
     scores = torch.einsum("bkgd,bskd->bkgs", qf.float(), k_cache.float())
     scores = scores.masked_fill(~length_mask[:, None, None, :], _NEG_INF)
+    if seq_axes:
+        m = spmd.all_reduce_max(scores.amax(dim=-1), seq_axes)
+        p = torch.exp(scores - m[..., None])
+        l = spmd.all_reduce(p.sum(dim=-1), seq_axes)
+        out = spmd.all_reduce(torch.einsum(
+            "bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+            v_cache.float()), seq_axes) / l[..., None]
+        return out.reshape(b, h, hd).to(q.dtype)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
@@ -122,13 +134,23 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     """Full-sequence causal attention (prefill), windowed under SWA."""
     window = _window(cfg)
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    # in a per-device program whose rules shard the heads over "model",
+    # this rank's heads (`_local_kv`); otherwise every head
+    h = p["wq"].shape[-1] // hd
+    kv = p["wk"].shape[-1] // hd
+    if h != cfg.n_heads and kv == cfg.n_kv_heads:
+        # whole KV projections of which each rank reads its query heads'
+        # groups (`_local_kv`): their gradients are summed over "model"
+        p = {k: (spmd.copy_to(w, "model") if k in ("wk", "wv", "bk", "bv")
+                 else w) for k, w in p.items()}
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(x, p["wk"], p.get("bk")).reshape(b, s, kv, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(b, s, kv, hd)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    k, v = _local_kv(k, v, h, cfg)
     f = get_flags()
     if x.device.type == "cuda" and not f.force_plain and \
             f.attention_impl == "kernel":
@@ -140,6 +162,26 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     else:
         out = chunked_attention(q, k, v, chunk=chunk, window=window)
     return linear(out.reshape(b, s, h * hd), p["wo"])
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, h_local: int,
+              cfg: ArchConfig):
+    """The KV heads that this rank's `h_local` query heads read, along
+    axis 2 of k/v (..., Kv, hd).  Where the query heads are cut over
+    "model" and the KV heads are not (the rules keep a KV projection whole
+    when its heads do not divide the axis), rank r's query heads r * h_local
+    ... are the group of KV head (r * h_local + i) // (H / Kv); where both
+    are cut, or neither, k and v are already this rank's."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h_local == h or k.shape[2] != kv:
+        return k, v
+    g = h // kv
+    first = spmd.current().index("model") * h_local
+    if g % h_local == 0 or h_local % g == 0:
+        lo, n = first // g, max(1, h_local // g)
+        return k.narrow(2, lo, n), v.narrow(2, lo, n)
+    idx = (first + torch.arange(h_local, device=k.device)) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -167,25 +209,54 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
     the cache is updated in place."""
     window = _window(cfg)
     b, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    h = p["wq"].shape[-1] // hd      # this rank's query heads (attn_forward)
+    kv = p["wk"].shape[-1] // hd
     q = linear(x, p["wq"], p.get("bq")).reshape(b, h, hd)
     k = linear(x, p["wk"], p.get("bk")).reshape(b, kv, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(b, kv, hd)
     cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)  # (B, hd//2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if kv != cfg.n_kv_heads:
+        # the cache holds every KV head on every rank of "model"
+        k = spmd.all_gather(k, "model", 1)
+        v = spmd.all_gather(v, "model", 1)
 
+    # the cache's positions on this rank: all of them, or, where the
+    # decode state's rules cut the sequence over some axes, this rank's
+    # part of them (a distributed softmax then reads every part)
+    local = spmd.current()
+    seq_axes = () if local is None else \
+        local.kv_seq_axes.get(id(cache["k"]), ())
     cache_len = cache["k"].shape[2]
-    slot = pos if window is None else pos % cache_len
+    lo = 0
+    total = cache_len
+    if seq_axes:
+        lo = local.index(seq_axes) * cache_len
+        total = cache_len * local.size(seq_axes)
+    slot = pos if window is None else pos % total
     rows = torch.arange(b, device=x.device)
-    cache["k"][layer_idx, rows, slot] = k.to(cache["k"].dtype)
-    cache["v"][layer_idx, rows, slot] = v.to(cache["v"].dtype)
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
+    if seq_axes:
+        here = slot - lo
+        mine = ((here >= 0) & (here < cache_len))[:, None, None]
+        here = torch.clamp(here, 0, cache_len - 1)
+        k = torch.where(mine, k, cache["k"][layer_idx, rows, here])
+        v = torch.where(mine, v, cache["v"][layer_idx, rows, here])
+        slot_here = here
+    else:
+        slot_here = slot
+    cache["k"][layer_idx, rows, slot_here] = k
+    cache["v"][layer_idx, rows, slot_here] = v
     k_cache, v_cache = cache["k"][layer_idx], cache["v"][layer_idx]
-    idx = torch.arange(cache_len, device=x.device)
+    k_cache, v_cache = _local_kv(k_cache, v_cache, h, cfg)
+    idx = lo + torch.arange(cache_len, device=x.device)
     valid = idx[None, :] <= slot[:, None]
     if window is not None:
-        valid = valid | (pos[:, None] >= cache_len)
-    out = decode_attention(q, k_cache, v_cache, valid)
+        valid = valid | (pos[:, None] >= total)
+    out = decode_attention(q, k_cache, v_cache, valid, seq_axes)
     return linear(out.reshape(b, h * hd), p["wo"])
 
 

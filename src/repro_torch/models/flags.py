@@ -33,9 +33,11 @@ The port's counterpart of `repro.models.flags`.  Seven switches:
                            (`transformer.py::_sp_constraint`).  On a mesh
                            whose "model" axis is 1, the card's own, the
                            constraint is the identity, as the reference's is
-                           on one device; a mesh with no devices behind it,
-                           or a "model" axis over 1, raises (no partitioner
-                           and no process groups in the port yet).
+                           on one device; in the per-device program of a
+                           larger mesh (`parallel/spmd.py`) the stream is
+                           cut along the sequence over "model"; a mesh
+                           with no devices behind it, or a larger mesh
+                           outside its per-device program, raises.
   moe_impl       : "global"      — every token of the batch routed together
                                    (`moe.py::moe_forward`);
                    "ep_shardmap" — the reference's expert-parallel form:

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..core.torch_frontend import kernel_call
 from ..kernels.rmsnorm import rmsnorm_pipelined, rmsnorm_plain
+from ..parallel import spmd
 from .flags import get_flags
 
 Params = Dict[str, torch.Tensor]
@@ -90,11 +91,26 @@ def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 # -- Embedding ---------------------------------------------------------------
 
-def embed(tokens: torch.Tensor, p: Params,
-          dtype: torch.dtype) -> torch.Tensor:
-    # F.embedding rather than `table[tokens]`: the same gather, and one a
-    # capture of a CUDA program can trace on the CPU (core/torch_frontend)
-    return F.embedding(tokens, p["table"].to(dtype))
+def embed(tokens: torch.Tensor, p: Params, dtype: torch.dtype,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """The rows of the table at `tokens`.  In a per-device program whose
+    table holds only its share of the `vocab` rows (the rules shard them
+    over "model"), each rank takes the tokens in its rows, zeros the
+    others, and the ranks' rows are summed over "model": the vocab-parallel
+    embedding."""
+    table = p["table"].to(dtype)
+    if vocab is None or table.shape[0] == vocab:
+        # F.embedding rather than `table[tokens]`: the same gather, and
+        # one a capture of a CUDA program can trace on the CPU
+        # (core/torch_frontend)
+        return F.embedding(tokens, table)
+    lo = spmd.current().index("model") * table.shape[0]
+    local = tokens - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(mine, local, torch.zeros_like(local)),
+                       table)
+    rows = rows * mine[..., None].to(dtype)
+    return spmd.all_reduce(rows, "model")
 
 
 def unembed(x: torch.Tensor, table_or_w: torch.Tensor,

@@ -36,9 +36,11 @@ not once a slot.
 
 `moe_forward_ep` is the reference's shard_map expert parallelism: each
 shard of the current mesh routes its own tokens (`_local_dispatch_compute`)
-and exchanges them with the expert shards by two all-to-alls.  The port
-runs it on a mesh of one device, the card's own, where the all-to-alls
-are the identity; off a mesh it falls back to `moe_forward`.
+and exchanges them with the expert shards by two all-to-alls over "model"
+(`all_to_all_single`, tiled as `jax.lax.all_to_all`), in the per-device
+program of the mesh (`parallel/spmd.py`); on the card's own `(1, 1)` mesh
+the all-to-alls are the identity; off a mesh it falls back to
+`moe_forward`.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..parallel import spmd
 from .layers import init_mlp, linear, mlp
 
 Params = Dict[str, torch.Tensor]
@@ -263,10 +266,22 @@ def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig
 def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux_loss scalar): every token of the
-    batch routed together, the reference's `moe_forward`."""
+    batch routed together, the reference's `moe_forward`.  In a per-device
+    program whose batch is cut over data axes, the batch's rows are
+    gathered from them first, every rank routes them all alike, and keeps
+    its own rows of the result (the gradients stay partial over the data
+    axes: the gather's backward reduce-scatters, the cut's pads with
+    zeros)."""
+    local = spmd.current()
+    axes = () if local is None else local.batch_axes
+    if axes:
+        x = spmd.all_gather(x, axes, 0, bwd="sum")
     b, s, d = x.shape
     y, aux = moe_groups(p, x.reshape(1, b * s, d), cfg)
-    return y.reshape(b, s, d), aux[0]
+    y = y.reshape(b, s, d)
+    if axes:
+        y = spmd.scatter(y, axes, 0, bwd="zeros")
+    return y, aux[0]
 
 
 def moe_forward_slots(p: Params, x: torch.Tensor, cfg: ArchConfig
@@ -285,13 +300,14 @@ def _all_to_all(buf: torch.Tensor, tp: int, split_axis: int,
     tiled=True)` over a "model" axis of `tp` devices: `buf` split into tp
     parts along `split_axis`, part j sent to device j, the parts received
     laid end to end along `concat_axis`.  On one device that is `buf`
-    itself; more needs `torch.distributed` process groups, which the port
-    has not yet."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"all_to_all over a 'model' axis of {tp} devices needs "
-            f"torch.distributed process groups, a later slice of the port")
-    return buf
+    itself; on more, one `all_to_all_single` over the "model" group of the
+    running per-device program (`parallel/spmd.py`)."""
+    if tp == 1:
+        return buf
+    if spmd.tp_size() != tp:
+        raise RuntimeError(f"all_to_all over a 'model' axis of {tp} "
+                           f"devices outside a per-device program of one")
+    return spmd.all_to_all(buf, "model", split_axis, concat_axis)
 
 
 def _local_dispatch_compute(p: Params, xf: torch.Tensor, cfg: ArchConfig,
@@ -324,12 +340,17 @@ def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ArchConfig
     or where the "model" axis does not divide the experts, it falls back
     to `moe_forward`, as the reference does.
 
-    The port runs the per-shard body where the mesh is one device (the
-    card's own `make_host_mesh()`, `(1, 1)`): the data shards' mean of the
-    aux loss and both all-to-alls are then the identity.  A mesh with no
-    devices behind it raises (no partitioner writes its per-device
-    program), and so does a mesh of more than one device (no process
-    groups yet)."""
+    This is the per-shard body, run by every rank of the per-device
+    program of the current mesh (`parallel/spmd.py`) on its own tokens,
+    its batch rows, whole over "model" as the reference's `shard_map`
+    takes them (`P(dp, None, None)`), and on its own experts, E / tp of
+    them; on the card's own `(1, 1)` mesh the all-to-alls and the data
+    shards' mean of the aux loss are the identity.  Every rank of "model"
+    sends the same buffer, so each expert shard runs its experts on tp
+    copies of it and each copy's output goes back to its sender: the
+    expert weights' gradient sums the tp copies' and is taken 1 / tp
+    times, the one copy's.  A mesh with no devices behind it raises, and
+    so does a mesh of several devices outside its per-device program."""
     from ..parallel.context import get_current_mesh
 
     mesh = get_current_mesh()
@@ -339,14 +360,25 @@ def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ArchConfig
     if mesh.devices is None:
         raise RuntimeError(
             f"moe_forward_ep: the {mesh.shape} mesh has no devices behind "
-            f"it; with no partitioner its per-device program is not built")
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"moe_forward_ep on a {mesh.shape} mesh needs torch.distributed "
-            f"process groups, a later slice of the port")
+            f"it; nothing runs its per-device program")
+    local = spmd.current()
+    if mesh.size != 1 and local is None:
+        raise RuntimeError(
+            f"moe_forward_ep on the {mesh.shape} mesh outside its "
+            f"per-device program (`parallel/spmd.py`)")
+    tp = mesh.shape["model"]
+    if tp > 1:
+        p = {k: (spmd.scale_grad(v, 1.0 / tp)
+                 if k in ("w_gate", "w_up", "w_down") else v)
+             for k, v in p.items()}
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    y, aux = _local_dispatch_compute(p, xf, cfg, mesh.shape["model"])
+    y, aux = _local_dispatch_compute(p, xf, cfg, tp)
     if "shared" in p:
         y = y + mlp(xf, p["shared"])
+    if local is not None and local.batch_axes:
+        # the data shards' mean (`jax.lax.pmean`); its users' gradients
+        # are partial over the data axes, so its backward sums them
+        aux = spmd.all_reduce(aux, local.batch_axes, bwd="sum") / \
+            local.size(local.batch_axes)
     return y.reshape(b, s, d), aux

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ArchConfig
 from ..core.torch_frontend import capture_functions
+from ..parallel import spmd
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -190,9 +191,20 @@ def _unbind(tree, reps: int) -> List:
     return torch.unbind(tree, 0)
 
 
+def _vocab_split(params: Params, cfg: ArchConfig) -> bool:
+    """Whether the head holds only this rank's share of the vocab (a
+    per-device program whose rules shard it over "model")."""
+    w = params["embed"]["table"] if cfg.tie_embeddings else params["head"]
+    return w.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size
+
+
 def _logits(params: Params, x: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
+    """f32 logits, over this rank's share of the vocab where the head is
+    split over "model" (`_vocab_split`)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if _vocab_split(params, cfg):
+        x = spmd.copy_to(x, "model")
     if cfg.tie_embeddings:
         logits = unembed(x, params["embed"]["table"], transpose=True)
     else:
@@ -200,20 +212,59 @@ def _logits(params: Params, x: torch.Tensor,
     return logits.float()
 
 
+def _enter(h: torch.Tensor, sp: bool, tp: bool) -> torch.Tensor:
+    """A block's input `h` as a region of a per-device program takes it:
+    the whole sequence, gathered over "model" where the residual stream is
+    sequence-sharded (`sp`).  `tp`: the region is tensor-parallel, its
+    gradients partial over "model" and summed here (Megatron's `f`, or the
+    gather's reduce-scatter); otherwise it runs alike on every rank."""
+    if sp:
+        return spmd.all_gather(h, "model", 1, bwd="sum" if tp else "slice")
+    return spmd.copy_to(h, "model") if tp else h
+
+
+def _exit(y: torch.Tensor, sp: bool, tp: bool) -> torch.Tensor:
+    """A region's output back in the residual stream's layout: a
+    tensor-parallel region's partial sums summed over "model" (`g`), or
+    reduce-scattered along the sequence under `sp`; a region run alike on
+    every rank cut to this rank's part of the sequence under `sp`."""
+    if sp:
+        return spmd.reduce_scatter(y, "model", 1) if tp else \
+            spmd.scatter(y, "model", 1)
+    return spmd.all_reduce(y, "model") if tp else y
+
+
+def _replicated(fn, h: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A region with no tensor-parallel form (SSM, xLSTM, MLA, the MoE):
+    its weights are whole on every rank, and it runs alike on each."""
+    return _exit(fn(_enter(h, sp, False)), sp, False)
+
+
 def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
-           positions: torch.Tensor, chunk: int) -> torch.Tensor:
-    """The mixer of one full-sequence block."""
+           positions: torch.Tensor, chunk: int,
+           sp: bool = False) -> torch.Tensor:
+    """The mixer of one full-sequence block.  In a per-device program,
+    `h` and the result are in the residual stream's layout (`sp`: cut
+    along the sequence over "model"); GQA attention whose heads the rules
+    shard over "model" runs on this rank's heads."""
     if mixer == "mlstm":
-        return xlstm_mod.mlstm_forward(p["mlstm"], h, cfg)
+        return _replicated(lambda t: xlstm_mod.mlstm_forward(
+            p["mlstm"], t, cfg), h, sp)
     if mixer == "slstm":
-        return xlstm_mod.slstm_forward(p["slstm"], h, cfg)
+        return _replicated(lambda t: xlstm_mod.slstm_forward(
+            p["slstm"], t, cfg), h, sp)
     if mixer == "ssm":
-        return ssm_mod.ssm_forward(p["ssm"], h, cfg)
+        return _replicated(lambda t: ssm_mod.ssm_forward(p["ssm"], t, cfg),
+                           h, sp)
     if mixer == "mla":
-        return attn_mod.mla_forward(p["attn"], h, cfg, positions, chunk)
-    y = attn_mod.attn_forward(p["attn"], h, cfg, positions, chunk)
+        return _replicated(lambda t: attn_mod.mla_forward(
+            p["attn"], t, cfg, positions, chunk), h, sp)
+    tp = p["attn"]["wq"].shape[-1] != cfg.n_heads * cfg.head_dim_
+    y = _exit(attn_mod.attn_forward(p["attn"], _enter(h, sp, tp), cfg,
+                                    positions, chunk), sp, tp)
     if mixer == "hybrid":
-        y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], h, cfg))
+        y = 0.5 * (y + _replicated(lambda t: ssm_mod.ssm_forward(
+            p["ssm"], t, cfg), h, sp))
     return y
 
 
@@ -232,25 +283,38 @@ def _sp_constraint(x: torch.Tensor) -> torch.Tensor:
     `flags.sequence_parallel` is set and the current mesh has a "model"
     axis dividing the sequence.  On a mesh of one device, the card's own,
     the shard is the whole stream, as the reference's constraint is on one
-    device; a mesh with no devices behind it raises (there is no
-    partitioner to shard it), and so does a mesh of more than one device
-    (no process groups yet)."""
-    if not get_flags().sequence_parallel:
+    device.  In the per-device program of a larger mesh the stream, whole
+    on every rank, is cut here to this rank's part of the sequence, and
+    `forward` keeps it so from block to block (each region gathers it and
+    reduce-scatters back, `_enter` / `_exit`).""" 
+    if not _sp_applies(x):
         return x
+    if spmd.current() is None or spmd.tp_size() == 1:
+        return x
+    return spmd.scatter(x, "model", 1)
+
+
+def _sp_applies(x: torch.Tensor) -> bool:
+    """`_sp_constraint`'s condition: the flag, and a current mesh whose
+    "model" axis divides the sequence.  A mesh whose per-device program is
+    not running (one with no devices, or several devices outside a step on
+    them) raises: nothing would shard the stream over it."""
+    if not get_flags().sequence_parallel:
+        return False
     from ..parallel.context import get_current_mesh
     mesh = get_current_mesh()
     if mesh is None or "model" not in mesh.axis_names or \
             x.ndim != 3 or x.shape[1] % mesh.shape["model"] != 0:
-        return x
+        return False
     if mesh.devices is None:
         raise RuntimeError(
             f"sequence_parallel: the {mesh.shape} mesh has no devices "
-            f"behind it; with no partitioner nothing is sharded over it")
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"sequence_parallel on a {mesh.shape} mesh needs "
-            f"torch.distributed process groups, a later slice of the port")
-    return x
+            f"behind it; nothing runs its per-device program")
+    if mesh.size != 1 and spmd.current() is None:
+        raise RuntimeError(
+            f"sequence_parallel on the {mesh.shape} mesh outside its "
+            f"per-device program (`parallel/spmd.py`)")
+    return True
 
 
 # set while `_moe_out` takes its view: the one op `group_save_moe` saves
@@ -286,21 +350,36 @@ def _block(p: Params, x: torch.Tensor, mixer: str, ffn: str,
     """One full-sequence layer.  Returns (x, aux_loss), aux_loss None
     unless the FFN is a MoE, whose output `name_moe_out` names for
     `group_save_moe`."""
-    x = _sp_constraint(x)
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + _mixer(p, h, mixer, cfg, positions, chunk)
+    if x.shape[1] == positions.shape[0]:
+        x = _sp_constraint(x)
+    # in a per-device program under sequence parallelism the stream holds
+    # this rank's part of the sequence; a norm's weight then sees tokens
+    # that differ from rank to rank, and its gradient is summed over them
+    sp = x.shape[1] != positions.shape[0]
+
+    def norm(t, scale):
+        return rmsnorm(t, spmd.copy_to(scale, "model") if sp else scale,
+                       cfg.norm_eps)
+
+    h = norm(x, p["ln1"])
+    x = x + _mixer(p, h, mixer, cfg, positions, chunk, sp)
     aux = None
     if ffn != "none":
-        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        h = norm(x, p["ln2"])
         if ffn == "moe":
             moe_forward = moe_mod.moe_forward_ep if \
                 get_flags().moe_impl == "ep_shardmap" else \
                 moe_mod.moe_forward
+            if sp:
+                h = _enter(h, sp, False)
             y, aux = moe_forward(p["ffn"], h, cfg)
+            if sp:
+                y = _exit(y, sp, False)
             if name_moe_out:
                 y = _moe_out(y)
         else:
-            y = mlp(h, p["ffn"])
+            tp = p["ffn"]["w_down"].shape[-2] != cfg.d_ff
+            y = _exit(mlp(_enter(h, sp, tp), p["ffn"]), sp, tp)
         x = x + y
     return x, aux
 
@@ -342,7 +421,7 @@ def forward(params: Params, cfg: ArchConfig,
     if embeds is not None:
         x = embeds.to(dtype)
     else:
-        x = embed(tokens, params["embed"], dtype)
+        x = embed(tokens, params["embed"], dtype, cfg.vocab_size)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     records = torch.is_grad_enabled() and any(
@@ -370,6 +449,10 @@ def forward(params: Params, cfg: ArchConfig,
                 x, layer_aux = _block(*args)
             if ffn == "moe":
                 aux = aux + layer_aux
+    if x.shape[1] != positions.shape[0]:
+        # the stream cut along the sequence (sequence parallelism in a
+        # per-device program): the head runs on the whole sequence
+        x = spmd.all_gather(x, "model", 1, bwd="slice")
     return _logits(params, x, cfg), aux
 
 
@@ -389,13 +472,41 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict,
         embeds=None if embeds is None else torch.as_tensor(embeds),
         chunk=chunk, remat=remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    logp = torch.log_softmax(logits, dim=-1)
-    # -logp at each label (the reference's take_along_axis), by nll_loss:
-    # the same gather, and one a capture of a CUDA program can trace on
-    # the CPU (core/torch_frontend)
-    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
-                     labels.reshape(-1).long(), reduction="none")
-    return nll.mean() + aux_weight * aux
+    if _vocab_split(params, cfg):
+        nll = _vocab_parallel_nll(logits, labels.long())
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        # -logp at each label (the reference's take_along_axis), by
+        # nll_loss: the same gather, and one a capture of a CUDA program
+        # can trace on the CPU (core/torch_frontend)
+        nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
+                         labels.reshape(-1).long(), reduction="none")
+    loss = nll.mean() + aux_weight * aux
+    local = spmd.current()
+    if local is not None and local.size(local.batch_axes) > 1:
+        # this rank's share of the global loss: its batch rows' mean over
+        # the shards, the aux term (alike on every shard) likewise
+        loss = loss / local.size(local.batch_axes)
+    return loss
+
+
+def _vocab_parallel_nll(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax at each label, from logits (..., V / tp) holding this
+    rank's share of the vocab: the max, the sum of exponentials and the
+    label's logit each summed over "model", so no rank holds the
+    vocab-wide logits."""
+    v = logits.shape[-1]
+    lo = spmd.current().index("model") * v
+    m = spmd.all_reduce_max(logits.detach().amax(dim=-1), "model")
+    z = logits - m[..., None]
+    lse = torch.log(spmd.all_reduce(torch.exp(z).sum(dim=-1), "model"))
+    local = labels - lo
+    mine = (local >= 0) & (local < v)
+    picked = torch.gather(z, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    picked = spmd.all_reduce(picked * mine.to(z.dtype), "model")
+    return (lse - picked).reshape(-1)
 
 
 # -- decode ------------------------------------------------------------------
@@ -448,7 +559,7 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
     pos = torch.as_tensor(pos, device=token.device).long()
     per_slot = pos.ndim > 0
     pos = pos.expand(token.shape[0])
-    x = embed(token, params["embed"], dtype)
+    x = embed(token, params["embed"], dtype, cfg.vocab_size)
     for ((mixer, ffn), reps), stacked_p, stack in zip(
             layer_groups(cfg), params["groups"], state["groups"]):
         for i in range(reps):
@@ -466,6 +577,10 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
             elif mixer in ("attn", "hybrid"):
                 y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
                                          layer_idx=i)
+                # this rank's heads' share, in a per-device program whose
+                # rules cut them over "model"
+                y = _exit(y, False, p["attn"]["wq"].shape[-1] !=
+                          cfg.n_heads * cfg.head_dim_)
             if mixer in ("ssm", "hybrid"):
                 ys, new = ssm_mod.ssm_decode(p["ssm"], h,
                                              _layer(stack["ssm"], i), cfg)
@@ -481,7 +596,8 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
                                                 cfg)[0][:, 0]
             elif ffn == "mlp":
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-                x = x + mlp(h, p["ffn"])
+                x = x + _exit(mlp(h, p["ffn"]), False,
+                              p["ffn"]["w_down"].shape[-2] != cfg.d_ff)
     return _logits(params, x, cfg), state
 
 

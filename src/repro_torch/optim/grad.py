@@ -17,14 +17,18 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
 
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads, max_norm: float,
+                        total: Callable[[List[torch.Tensor]],
+                                        torch.Tensor] = sum
+                        ) -> Tuple[Any, torch.Tensor]:
     """(grads scaled to a global L2 norm of at most `max_norm`, the norm
     before).  The norm is taken in f32; each gradient is scaled in f32 and
     cast back to its dtype, as the reference's `(g * scale).astype(g.dtype)`
-    promotes a bf16 gradient to the f32 scale."""
+    promotes a bf16 gradient to the f32 scale.  `total` sums the leaves'
+    squared norms (on a mesh, over the shards too)."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in leaves))
+    gnorm = torch.sqrt(total([torch.sum(torch.square(g.float()))
+                              for g in leaves]))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
@@ -68,24 +72,28 @@ class GradAccumulator:
         return tree_map(lambda g: g / len(micro_batches), acc)
 
 
-def compress_gradients(grads, error_feedback: Optional[Any] = None
-                       ) -> Tuple[Any, Any]:
+def compress_gradients(grads, error_feedback: Optional[Any] = None,
+                       amax: Optional[Any] = None) -> Tuple[Any, Any]:
     """Int8 quantization with error feedback.  Returns (the gradients
     dequantized back to their dtypes, the new error feedback in f32); with
-    no `error_feedback` the carried error starts at zero."""
+    no `error_feedback` the carried error starts at zero.  `amax`, a tree
+    of the gradients' structure, maps each leaf's largest magnitude to the
+    one its scale takes (on a mesh, the largest over the leaf's shards)."""
     if error_feedback is None:
         error_feedback = tree_map(
             lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
 
-    def leaf(g, ef):
+    def leaf(g, ef, top):
         gf = g.float() + ef
-        scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+        scale = torch.clamp(top(gf.abs().max()), min=1e-12) / 127.0
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         deq = q.float() * scale
         return deq.to(g.dtype), gf - deq
 
     flat_g, spec = tree_flatten(grads)
-    out = [leaf(g, e) for g, e in
-           zip(flat_g, spec.flatten_up_to(error_feedback))]
+    tops = [lambda m: m] * len(flat_g) if amax is None else \
+        spec.flatten_up_to(amax)
+    out = [leaf(g, e, top) for g, e, top in
+           zip(flat_g, spec.flatten_up_to(error_feedback), tops)]
     return (spec.unflatten([o[0] for o in out]),
             spec.unflatten([o[1] for o in out]))

@@ -5,7 +5,9 @@ The launcher (`launch/dryrun.py`) sets the active mesh here so model code
 deep inside the layer loop (`models/moe.py::moe_forward_ep`,
 `models/transformer.py::_sp_constraint`) can read it without threading the
 mesh through every call signature.  The mesh is the port's own
-`launch/mesh.py::Mesh`.
+`launch/mesh.py::Mesh`, with the `DeviceMesh` of its process group
+behind it where one exists; the running per-device program's view of it
+is `parallel/spmd.py::current()`.
 """
 from __future__ import annotations
 

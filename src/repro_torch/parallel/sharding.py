@@ -22,9 +22,11 @@ names, and a tree is the port's nest of dicts and lists of tensors (on
 `torch.device("meta")` for the dry run), its paths joined with "/" as the
 reference's (`groups/0/attn/wq`).  As there, auto-FSDP and the decode
 cache budget count 2 bytes an element whatever the leaf's dtype.
-`param_shardings` gives each leaf's spec and per-device shape, which is
-all the port takes of `NamedSharding`: PyTorch on one card has no
-partitioner, so nothing here places a tensor.
+`param_shardings` gives each leaf's spec and per-device shape, as
+`NamedSharding` does.  `placements` maps a spec to DTensor placements on a
+mesh's `DeviceMesh`, `place` lays a tree out by its specs as DTensors (each
+rank keeps its own shard of the full tensors it is handed), and `gather`
+gives the full tensors back.
 """
 from __future__ import annotations
 
@@ -418,3 +420,83 @@ def per_device_bytes(specs, tree, mesh) -> int:
     return sum(math.prod(shard_shape(_at(specs, path), _shape(leaf), mesh))
                * leaf.element_size()
                for path, leaf in tree_leaves_with_path(tree))
+
+
+# -- DTensor placements ------------------------------------------------------
+
+def placements(spec: P, mesh) -> Tuple[Any, ...]:
+    """The DTensor placements of `spec` on `mesh`, one a mesh axis in the
+    mesh's order: `Shard(dim)` on each axis an entry names, `Replicate()`
+    on the others.  An entry naming two axes, as auto-FSDP's
+    `("pod", "data")`, shards its dimension over both, the first axis
+    major: DTensor's order of `Shard`s on one dimension, `jax.sharding`'s
+    too."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: List[Any] = [Replicate() for _ in mesh.axis_names]
+    for dim, e in enumerate(spec):
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        for a in names:
+            i = mesh.axis_names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} shards two dimensions over "
+                                 f"axis {a!r}")
+            out[i] = Shard(dim)
+        if len(names) > 1 and [mesh.axis_names.index(a) for a in names] != \
+                sorted(mesh.axis_names.index(a) for a in names):
+            raise ValueError(f"spec {spec} names axes {names} out of the "
+                             f"mesh's order {mesh.axis_names}")
+    return tuple(out)
+
+
+def local_part(t, spec: P, mesh, coords: Dict[str, int]):
+    """This rank's shard of the full tensor `t` under `spec` (a view):
+    along each sharded dimension, the part at the rank's linear index over
+    the entry's axes, the first axis major."""
+    out = t
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        names = e if isinstance(e, tuple) else (e,)
+        n, i = 1, 0
+        for a in names:
+            n *= mesh.shape[a]
+            i = i * mesh.shape[a] + coords[a]
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"spec {spec} splits dimension {dim} of "
+                             f"{tuple(t.shape)} {n} ways, not evenly")
+        part = out.shape[dim] // n
+        out = out.narrow(dim, i * part, part)
+    return out
+
+
+def place(tree, specs, mesh) -> Any:
+    """`tree`'s tensors as DTensors on `mesh`'s `DeviceMesh`, each laid
+    out by its spec in the same-structured `specs`.  Every rank hands in
+    the same full tensors (made from one seed, or read from one
+    checkpoint) and keeps its own shard of each: nothing is sent.  On a
+    mesh with no `DeviceMesh` behind it (one device, no process group)
+    each tensor is its own shard and the tree is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    dm = mesh.device_mesh
+    if dm is None:
+        return tree
+    coords = dict(zip(mesh.axis_names, dm.get_coordinate()))
+
+    def leaf(path, t):
+        spec = _at(specs, path)
+        local = local_part(t, spec, mesh, coords).contiguous()
+        return DTensor.from_local(local, dm, placements(spec, mesh),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.contiguous().stride())
+    return tree_map_with_path(leaf, tree)
+
+
+def gather(tree) -> Any:
+    """The full tensors of a tree of DTensors (every rank takes part: an
+    all-gather a sharded leaf); plain tensors pass through."""
+    from torch.distributed.tensor import DTensor
+    return tree_map_with_path(
+        lambda path, t: t.full_tensor() if isinstance(t, DTensor) else t,
+        tree)

@@ -9,11 +9,13 @@ computed with the modules it calls (`repro.parallel.sharding`,
   a direct `capture` of the step on real CPU tensors (instructions, FLOPs,
   bytes), the per-device argument bytes the real arguments' `nbytes`, the
   output bytes the real outputs', temp and code sizes absent.
-* `--mesh both` over every config and shape: `specs_only` records whose
-  per-tree bytes equal the reference specs' (each leaf's bytes over the
-  product of the mesh axes its spec names), and the reference's skip record
-  for `long_500k`.
-* A production mesh has no devices behind it: `lower_cell` raises.
+* each argument tree's bytes a device on both production meshes, for
+  every config and shape, equal to the reference specs' (each leaf's bytes
+  over the product of the mesh axes its spec names), and the reference's
+  skip record for `long_500k`; `--mesh both` over qwen2-0.5b's cells at
+  one layer: `ok` records with a program, collectives and those bytes.
+* A production mesh with nothing behind it has no program: `lower_cell`
+  raises; behind a fake process group it captures rank 0's program.
 """
 import ast
 import inspect
@@ -32,7 +34,8 @@ from repro.configs import ALL_ARCHS as J_ARCHS
 from repro.configs import shapes_for as j_shapes_for
 from repro.launch import specs as JS
 from repro.parallel.sharding import ShardingRules as JRules
-from repro_torch.configs import ShapeConfig, get_config, smoke_config
+from repro_torch.configs import ShapeConfig, get_config, shapes_for, \
+    smoke_config
 from repro_torch.core import capture
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -133,55 +136,100 @@ def _ref_bytes(jc, shape, mesh_shape):
 
 @pytest.fixture(scope="module")
 def sweep(tmp_path_factory):
-    """`main(["--arch", "all", "--shape", "all", "--mesh", "both"])`."""
+    """`main(["--arch", "qwen2-0.5b", "--shape", "decode_32k,long_500k",
+    "--mesh", "both", "--layers", "1", "--device", "cpu"])`: the decode
+    cell's per-device program on both production meshes, captured at full
+    width on one layer, and the long-context skip.  A capture on the CPU
+    costs seconds a layer, a minute for a prefill_32k cell's: the sweep of
+    every cell is a tool's run (`PERF.md`), and `tests/
+    test_torch_dryrun_mesh.py` captures train_4k."""
     out = tmp_path_factory.mktemp("dryrun")
     with pytest.raises(SystemExit) as done:
-        dryrun.main(["--arch", "all", "--shape", "all", "--mesh", "both",
-                     "--outdir", str(out)])
+        dryrun.main(["--arch", "qwen2-0.5b", "--shape", SWEPT, "--mesh",
+                     "both", "--layers", "1", "--device", "cpu",
+                     "--hw", "nvidia_h100_sxm", "--outdir", str(out)])
     assert done.value.code == 0
     return out
 
 
+SWEPT = "decode_32k,long_500k"
 MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 
 
+def _production_mesh(name):
+    return make_production_mesh(multi_pod=(name == "multi"))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_specs_only_bytes_equal_the_reference(sweep, arch):
+def test_argument_bytes_equal_the_reference(arch, tmp_path):
+    """Each argument tree's bytes a device on each production mesh, as the
+    dry run's records give them (`dryrun.argument_bytes`, the uncut cell
+    under the specs), against the reference specs'; and the reference's
+    skip record for long_500k where the arch has no long context."""
+    from repro_torch.launch import specs
     jc = J_ARCHS[ARCHS.index(arch)]
+    cfg = get_config(arch)
     names = [s.name for s in j_shapes_for(jc)]
     for shape in j_shapes_for(jc):
+        inputs = specs.input_specs(cfg, next(
+            s for s in shapes_for(cfg) if s.name == shape.name))
         for mesh, mesh_shape in MESHES.items():
-            rec = json.loads(
-                (sweep / f"{arch}__{shape.name}__{mesh}.json").read_text())
+            got = dryrun.argument_bytes(cfg, shape, _production_mesh(mesh),
+                                        inputs)
+            assert got == _ref_bytes(jc, shape, mesh_shape), (shape, mesh)
+    if "long_500k" not in names:
+        for mesh in MESHES:
+            rec = dryrun.run_cell(arch, "long_500k", mesh, str(tmp_path))
+            assert rec["status"] == "skipped"
+
+
+def test_production_cells_have_programs(sweep):
+    """qwen2-0.5b's decode cells: `ok` records whose argument bytes are
+    the reference specs', with a collective term above 0 (the cell shards
+    its weights over an axis of 16), and the skip record of long_500k."""
+    jc = J_ARCHS[ARCHS.index("qwen2-0.5b")]
+    for shape in j_shapes_for(jc):
+        if shape.name not in SWEPT:
+            continue
+        for mesh, mesh_shape in MESHES.items():
+            rec = json.loads((sweep / f"qwen2-0.5b__{shape.name}__{mesh}"
+                                      f".json").read_text())
             n = math.prod(mesh_shape.values())
-            assert rec["status"] == "specs_only" and rec["chips"] == n
-            assert rec["reason"] == dryrun.NO_PARTITIONER.format(n=n)
+            assert rec["status"] == "ok" and rec["chips"] == n
+            assert rec["reduced"] == ["n_layers 24 -> 1"]
             assert rec["argument_bytes"] == _ref_bytes(jc, shape,
                                                        mesh_shape)
             total = sum(rec["argument_bytes"].values())
             assert rec["argument_bytes_total"] == total
             assert rec["fits"] == (total <= rec["hbm_bytes"])
-            assert "roofline" not in rec and "leo" not in rec
-    if "long_500k" not in names:
-        for mesh in MESHES:
-            rec = json.loads(
-                (sweep / f"{arch}__long_500k__{mesh}.json").read_text())
-            assert rec["status"] == "skipped"
+            rl = rec["roofline"]
+            assert rl["chips"] == n and rl["collective_bytes"] > 0
+            assert rl["collective_s"] > 0 and rl["hlo_flops"] > 0
+            assert rec["memory"]["temp_size_in_bytes"] is None
+    for mesh in MESHES:
+        rec = json.loads((sweep / f"qwen2-0.5b__long_500k__{mesh}.json"
+                          ).read_text())
+        assert rec["status"] == "skipped"
 
 
-def test_train_4k_bytes_a_device(sweep):
+def test_train_4k_bytes_a_device():
     """train_4k's params + optimizer state + batch a device under the
     reference's specs: qwen2-0.5b 0.185 / 0.160 GiB, phi3.5-moe 2.494 /
     1.329, deepseek-v2 12.974 / 6.908 (single / multi)."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import specs
     want = {"qwen2-0.5b": (0.185, 0.160),
             "phi3.5-moe-42b-a6.6b": (2.494, 1.329),
             "deepseek-v2-236b": (12.974, 6.908)}
+    shape = get_shape("train_4k")
     for arch, gib in want.items():
+        cfg = get_config(arch)
+        inputs = specs.input_specs(cfg, shape)
         for mesh, expect in zip(("single", "multi"), gib):
-            rec = json.loads(
-                (sweep / f"{arch}__train_4k__{mesh}.json").read_text())
-            assert round(rec["argument_bytes_total"] / 2**30, 3) == expect
+            total = sum(dryrun.argument_bytes(
+                cfg, shape, _production_mesh(mesh), inputs).values())
+            assert round(total / 2**30, 3) == expect
 
 
 # -- lower_cell on the CPU's own mesh ---------------------------------------
@@ -260,8 +308,8 @@ def test_wrong_dtype_leaf_fails_the_byte_equality():
     mesh = make_host_mesh(1, device="cpu")
     from repro_torch.launch import specs
     inputs = specs.input_specs(cfg, shape)
-    real = _nbytes(_real_inputs(cfg, shape)["params"]) + \
-        _nbytes(_real_inputs(cfg, shape)["batch"])
+    real = _nbytes(dryrun.program_inputs(shape, _real_inputs(cfg, shape)))
+    assert real < _nbytes(_real_inputs(cfg, shape))  # no labels taken
     _, memory, _ = dryrun.lower_cell(cfg, shape, mesh, inputs=inputs)
     assert memory["argument_size_in_bytes"] == real
     ln = inputs["params"]["groups"][0]["ln1"]
@@ -272,10 +320,24 @@ def test_wrong_dtype_leaf_fails_the_byte_equality():
 
 
 def test_production_mesh_is_specs_only():
+    """A production mesh with nothing behind it (shapes only, as the rules
+    read it) runs no program: `lower_cell` raises.  Behind the fake
+    process group of its ranks it captures rank 0's per-device program,
+    whose arguments are a device's share."""
+    from repro_torch.launch.mesh import fake_production_mesh
     cfg = smoke_config(get_config("qwen2-0.5b"))
-    shape = ShapeConfig("smoke_prefill", 32, 2, "prefill")
-    with pytest.raises(RuntimeError, match="no partitioner"):
+    shape = ShapeConfig("smoke_prefill", 32, 16, "prefill")
+    with pytest.raises(RuntimeError, match="no devices"):
         dryrun.lower_cell(cfg, shape, make_production_mesh())
+    with fake_production_mesh(device="cpu") as mesh:
+        module, memory, _ = dryrun.lower_cell(cfg, shape, mesh)
+    one, one_memory, _ = dryrun.lower_cell(cfg, shape,
+                                           make_host_mesh(1, device="cpu"))
+    assert memory["argument_size_in_bytes"] < \
+        one_memory["argument_size_in_bytes"]
+    assert any(i.op_class.value == "collective"
+               for i in module.all_instructions())
+    assert not torch.distributed.is_initialized()  # the group is gone
 
 
 def test_host_cell_record(tmp_path, monkeypatch):

@@ -171,17 +171,22 @@ def test_main_lanes(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "[whatif:guided] nvidia_h100_sxm best" in text
     assert "[rewrite:nvidia_h100_sxm]" in text
-    # --cell on a production mesh: one specs_only record a variant
+    # --cell on a production mesh: rank 0's per-device program a variant
+    # (a smoke config cut to one layer, captured for the CPU)
     cells = tmp_path / "cells"
-    port_hc.main(["--cell", "hymba", "--outdir", str(cells)])
-    names = [name for name, _, _ in port_hc.CELLS["hymba"]["variants"]]
-    assert sorted(p.name for p in cells.iterdir()) == sorted(
-        f"hymba-1.5b__train_4k__{name}.json" for name in names)
+    port_hc.main(["--cell", "qwen2", "--smoke", "--layers", "1",
+                  "--device", "cpu", "--backend", "nvidia_h100_sxm",
+                  "--outdir", str(cells)])
+    names = [name for name, _, _ in port_hc.CELLS["qwen2"]["variants"]]
+    assert sorted(p.name for p in cells.iterdir()
+                  if p.suffix == ".json") == sorted(
+        f"qwen2-0.5b-smoke__train_4k__{name}.json" for name in names)
     for name in names:
-        rec = json.loads((cells / f"hymba-1.5b__train_4k__{name}.json"
+        rec = json.loads((cells / f"qwen2-0.5b-smoke__train_4k__{name}.json"
                           ).read_text())
-        assert rec["status"] == "specs_only" and rec["variant"] == name
-        assert rec["chips"] == 256 and "no partitioner" in rec["reason"]
+        assert rec["variant"] == name and rec["reduced"]
+        assert rec["roofline"]["chips"] == 256
+        assert rec["roofline"]["collective_bytes"] > 0
 
 
 # the reference's flag values in the port's: K1 is "kernel" where the
@@ -232,7 +237,9 @@ def test_run_variant_records_the_references_keys(cell, variant, tmp_path):
     and a small train shape, two micro-batches (one `while`
     of 2 trips, unless the variant sets its own): the reference's record
     plus `memory`, `microbatch`, the kernel regions and the cut; `single`
-    writes specs_only."""
+    captures rank 0's per-device program on the 16x16 mesh: the same
+    record, collectives in its roofline and a device's share of the
+    arguments."""
     from repro_torch.configs import ShapeConfig, get_config, smoke_config
     spec = port_hc.CELLS[cell]
     name, flags, opts = next(v for v in spec["variants"] if v[0] == variant)
@@ -263,11 +270,20 @@ def test_run_variant_records_the_references_keys(cell, variant, tmp_path):
     assert rec["leo"]["top_stalls"] and rec["leo"]["root_causes"]
     for key, cut in LEO_CUTS.items():
         assert len(rec["leo"][key]) <= cut, key
+    # 32 rows: two micro-batches of a row on each of the 16 data shards
+    shape = ShapeConfig("train_32x64", 64, 32, "train")
     single = port_hc.run_variant(cfg, shape, name, flags, opts,
                                  "single", str(tmp_path / "single"),
-                                 hw_name="nvidia_h100_sxm", layers=layers)
-    assert single["status"] == "specs_only" and single["variant"] == name
-    assert single["label"] == label and single["flags"] == flags
+                                 hw_name="nvidia_h100_sxm", device="cpu",
+                                 layers=layers, analyze=False)
+    assert set(single) == set(rec) - {"leo"} and single["variant"] == name
+    assert single["label"] == f"{cfg.name}__train_32x64__{name}"
+    assert single["flags"] == flags
+    assert single["roofline"]["chips"] == 256
+    assert single["roofline"]["collective_bytes"] > 0
+    assert single["memory"]["argument_size_in_bytes"] < \
+        rec["memory"]["argument_size_in_bytes"]
+    assert single["microbatch"] == rec["microbatch"]
 
 
 def test_advisor_demo_smoke_equals_reference():

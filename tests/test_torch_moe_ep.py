@@ -10,7 +10,9 @@ arithmetic in another summation order; measured ~1e-9), on a token count
 that keeps every assignment and one where the capacity drops some.  Off a
 mesh, or where the "model" axis does not divide the experts, both fall
 back to `moe_forward`.  A mesh with no devices behind it, or one of more
-than one device, raises in the port instead of running something else.
+than one device outside its per-device program, raises in the port
+instead of running something else (`tests/test_torch_mesh_dist.py` runs
+the form on four ranks).
 
 `sequence_parallel` is the identity on a one-device mesh in both.  Under
 jax 0.9.0 the reference's `make_host_mesh` has Explicit axes, on which its
@@ -133,9 +135,12 @@ def test_ep_refuses_meshes_it_cannot_run():
     with mesh_context(Mesh(("data", "model"), (2, 2))):
         with pytest.raises(RuntimeError, match="no devices"):
             t_moe.moe_forward_ep(tl, x, tcfg)
+    # a mesh of several devices runs the expert-parallel form only in its
+    # per-device program (`parallel/spmd.py`), where each rank holds its
+    # own experts; outside it the whole layer is no rank's shard
     for sizes in ((1, 2), (2, 1)):
         with mesh_context(Mesh(("data", "model"), sizes, (cpu, cpu))):
-            with pytest.raises(NotImplementedError, match="process groups"):
+            with pytest.raises(RuntimeError, match="per-device program"):
                 t_moe.moe_forward_ep(tl, x, tcfg)
 
 
@@ -169,9 +174,9 @@ def test_forward_under_ep_and_sequence_parallel(arch, sp):
 
 
 def test_sequence_parallel_refuses_a_mesh_with_no_devices():
-    """On a production mesh there is no partitioner to shard the residual
-    stream: the forward raises; without the flag the mesh changes
-    nothing."""
+    """On a production mesh with nothing behind it no per-device program
+    runs to shard the residual stream: the forward raises; without the
+    flag the mesh changes nothing."""
     _, tcfg, _, tp = _weights(MOE_ARCHS[0])
     tokens = torch.zeros((1, 16), dtype=torch.long)
     with torch.no_grad(), mesh_context(make_production_mesh()):

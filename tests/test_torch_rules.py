@@ -165,23 +165,37 @@ print("BAD", bad)
 
 # the multi-device layer and the dry run
 MESH_TIERS = ["parallel/__init__.py", "parallel/context.py",
-              "parallel/sharding.py", "launch/mesh.py", "launch/specs.py",
-              "launch/dryrun.py"]
+              "parallel/sharding.py", "parallel/spmd.py", "launch/mesh.py",
+              "launch/specs.py", "launch/dryrun.py", "runtime/steps.py",
+              "checkpoint/manager.py", "launch/train.py",
+              "launch/hillclimb.py"]
 
 
 def test_no_jax_or_reference_in_the_dry_run(tmp_path):
-    """Sweep the dry run over every config, shape and production mesh,
-    lower a smoke cell on the CPU's own mesh with `--analyze`, and run the
+    """Sweep the dry run over two configs' decode and long-context cells
+    on both production meshes (each a per-device program captured behind a
+    fake process group, at one layer: a capture of every cell takes
+    minutes), capture the smoke train step's per-device program on a fake
+    (2, 2) mesh, lower a smoke cell on the CPU's own mesh, and run the
     expert-parallel MoE and sequence parallelism on it, in a fresh
     interpreter, and look at what got imported."""
     code = f"""
 import sys, torch
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_mesh
 try:
-    dryrun.main(["--arch", "all", "--shape", "all", "--mesh", "both",
-                 "--outdir", {str(tmp_path)!r}])
+    dryrun.main(["--arch", "qwen2-0.5b,phi3.5-moe-42b-a6.6b", "--shape",
+                 "decode_32k,long_500k", "--mesh", "both", "--layers", "1",
+                 "--device", "cpu", "--outdir", {str(tmp_path)!r}])
 except SystemExit as e:
     assert e.code == 0
+from repro_torch.configs import ShapeConfig, get_config, smoke_config
+with fake_mesh(("data", "model"), (2, 2)) as mesh:
+    module, _, _ = dryrun.lower_cell(
+        smoke_config(get_config("qwen2-0.5b")),
+        ShapeConfig("t", 32, 4, "train"), mesh)
+    assert any(i.op_class.value == "collective"
+               for i in module.all_instructions())
 from repro_torch.configs import ShapeConfig, get_config, smoke_config
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import forward, init_params
@@ -351,3 +365,27 @@ def test_config_tables_equal_reference():
     for name in j.SHAPES:
         assert dataclasses.asdict(t.get_shape(name)) == \
             dataclasses.asdict(j.get_shape(name))
+
+
+SHIMS = sorted(p.name for p in (ROOT / "src" / "repro" / "configs").glob(
+    "*.py") if p.name not in ("__init__.py", "base.py", "lm_archs.py"))
+
+
+@pytest.mark.parametrize("name", SHIMS)
+def test_config_shim_equals_reference(name):
+    """`configs/<arch>.py`: the reference's shim, file for file, whose
+    `CONFIG` is the same architecture as the reference's."""
+    import importlib
+    mod = name[:-3]
+    ref = importlib.import_module(f"repro.configs.{mod}")
+    port = importlib.import_module(f"repro_torch.configs.{mod}")
+    assert dataclasses.asdict(port.CONFIG) == dataclasses.asdict(ref.CONFIG)
+    assert (PORT / "configs" / name).read_text() == \
+        (ROOT / "src" / "repro" / "configs" / name).read_text()
+
+
+def test_configs_match_the_reference_file_for_file():
+    ref = sorted(p.name for p in (ROOT / "src" / "repro" / "configs"
+                                  ).glob("*.py"))
+    assert sorted(p.name for p in (PORT / "configs").glob("*.py")) == ref
+    assert len(SHIMS) == 10

@@ -169,7 +169,11 @@ def test_analyze_captures_the_whole_step(capsys, monkeypatch):
 
 
 def test_one_card_only():
-    with pytest.raises(ValueError, match="model-parallel"):
+    """Without a process group the driver has one device, and no "model"
+    axis of 2 to cut: `--model-parallel 2` raises, naming the launch it
+    needs (`tests/test_torch_mesh_dist.py` runs it on four ranks)."""
+    with pytest.raises(ValueError, match="model-parallel 2 needs the ranks "
+                                         "of a process group"):
         main(["--smoke", "--model-parallel", "2"] + CPU)
 
 
