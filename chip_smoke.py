@@ -203,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import io
 import itertools
 import json
@@ -3364,7 +3365,8 @@ def run_dry_cell(torch, ops, core, dryrun, mesh, mesh_context, flags, cfg,
     with flags(**model_flags):
         module, memory, capture_s = dryrun.lower_cell(cfg, shape, mesh)
         real_bytes = sum(t.numel() * t.element_size() for t in _leaves(
-            dryrun.program_inputs(shape, inputs)))
+            dryrun.program_inputs(shape, inputs, dryrun.unread_leaves(
+                shape, module))))
         step, args = dryrun.cell_program(
             cfg, shape, inputs, "cuda", dryrun.cell_options(cfg, shape,
                                                             mesh))
@@ -4675,7 +4677,19 @@ def run_moe_train(torch, ops, flags, get_config, init_params, loss_fn,
 MESH_PREFILL = (4, 1024)            # qwen2-0.5b's prefill, phase 4's B x S
 MESH_CELL = ("qwen2-0.5b", "train_4k", "single", 1)  # arch, shape, mesh, layers
 MESH_FLAGS = {"moe_impl": "ep_shardmap", "sequence_parallel": True}
-MESH_RANKS_LAYERS = 2               # (c): qwen2-0.5b at full width, 2 layers
+# (a) the MoE configs under the default `global` form, 2 layers each
+# (deepseek-v2: one dense, one MoE): (arch, whether the train step runs).
+# deepseek-v2's train state at 2 layers is 69.9 GiB (bf16 weights, f32
+# moments and master) and its gradients 10.0 GiB more, over the card's
+# 80 GB: its step runs on four ranks, (c), and on the CPU's four `gloo`
+# ranks (`tests/test_torch_mesh_dist.py`)
+MESH_GLOBAL = (("phi3.5-moe-42b-a6.6b", True), ("deepseek-v2-236b", False))
+MESH_GLOBAL_LAYERS = 2
+MESH_TICK = (8, 1024, 16)           # a serve tick: slots, cache, positions
+                                    # already held
+MESH_RANKS_LAYERS = 2               # (c): each config at full width, 2 layers
+MESH_RANKS_ARCHS = ("qwen2-0.5b", "phi3.5-moe-42b-a6.6b",
+                    "deepseek-v2-236b")
 MESH_RANKS_FACTOR = 3.0             # (c): phase 15's factor over the right
                                     # paths' spread
 
@@ -4701,18 +4715,20 @@ def same_bits(torch, a, b) -> bool:
                     b.view(torch.uint8) if b.dtype != torch.bool else b)
 
 
-def mesh_moe_step(torch, ops, flags, get_config, runtime, data):
+def mesh_moe_step(torch, ops, flags, get_config, runtime, data,
+                  arch=MOE_TRAIN_ARCH, model_flags=MESH_FLAGS):
     """(a) phase 22's phi3.5-moe train step (2 layers, B x S of phase 15)
-    under MESH_FLAGS: the one-card step, then the same state (seed 0) and
-    batch placed on the one-rank mesh and stepped by its per-device
-    program; the new params, loss and grad norm equal bit for bit."""
+    under MESH_FLAGS (or `arch` at 2 layers under `model_flags`): the
+    one-card step, then the same state (seed 0) and batch placed on the
+    one-rank mesh and stepped by its per-device program; the new params,
+    loss and grad norm equal bit for bit."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.context import mesh_context
     from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                                gather, place)
     from repro_torch.runtime.steps import shard_step, train_specs
-    cfg = replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    cfg = replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS)
     pipe = data.DataPipeline(data.SyntheticTokenDataset(data.SyntheticConfig(
         cfg.vocab_size, TRAIN_S, seed=0)), TRAIN_B)
     batch = pipe.device_batch(0)
@@ -4727,7 +4743,7 @@ def mesh_moe_step(torch, ops, flags, get_config, runtime, data):
         return state
 
     rows = {}
-    with flags(**MESH_FLAGS):
+    with flags(**model_flags):
         mesh = make_host_mesh(1)
         step = runtime.make_train_step(cfg, options=options)
         state = fresh()
@@ -4772,8 +4788,8 @@ def mesh_moe_step(torch, ops, flags, get_config, runtime, data):
                                 for a, b in zip(kept, params))
     launches = (rows["one_card"]["launches"],
                 rows["one_rank_mesh"]["launches"])
-    print(f"  (a) {MOE_TRAIN_ARCH} train step ({MOE_TRAIN_LAYERS} layers, B "
-          f"{TRAIN_B} x S {TRAIN_S}, {MESH_FLAGS}): one card "
+    print(f"  (a) {arch} train step ({MOE_TRAIN_LAYERS} layers, B "
+          f"{TRAIN_B} x S {TRAIN_S}, {model_flags}): one card "
           f"{rows['one_card']['seconds'] * 1e3:.3f} ms, the one-rank mesh's "
           f"per-device program {rows['one_rank_mesh']['seconds'] * 1e3:.3f}"
           f" ms (first calls, not timings); loss {got['loss']:.6f} / "
@@ -4784,34 +4800,39 @@ def mesh_moe_step(torch, ops, flags, get_config, runtime, data):
           f"{launches[0]['rmsnorm_pipelined']} and "
           f"{launches[1]['flash_attention']}/"
           f"{launches[1]['rmsnorm_pipelined']}")
-    require(equal, f"phase 23 (a): the MoE step on the one-rank mesh is not "
-            f"the one-card step's bits: {got} / {want}")
+    require(equal, f"phase 23 (a): {arch}'s step on the one-rank mesh is "
+            f"not the one-card step's bits: {got} / {want}")
     require(got["lr_scale"] == 1.0, f"phase 23 (a): lr_scale {got}")
     require(launches[0] == launches[1] and
             launches[1]["flash_attention"] > 0 and
             launches[1]["rmsnorm_pipelined"] > 0,
-            f"phase 23 (a): MoE step launches {launches}")
+            f"phase 23 (a): {arch} step launches {launches}")
     return {"metrics": got, "one_card": rows["one_card"],
             "one_rank_mesh": rows["one_rank_mesh"], "equal": equal}
 
 
 def mesh_prefill(torch, ops, flags, get_config, init_params,
-                 make_prefill_step):
+                 make_prefill_step, arch=ARCH, layers=0,
+                 model_flags=MESH_FLAGS):
     """(a) qwen2-0.5b's prefill at full width (phase 4's B x S) under
-    MESH_FLAGS: one card against the one-rank mesh's per-device program,
-    the logits bit for bit, K1 and K2 launched alike."""
+    MESH_FLAGS (or `arch`, its depth cut to `layers`, under
+    `model_flags`): one card against the one-rank mesh's per-device
+    program, the logits bit for bit, K1 and K2 launched alike (K1 once a
+    GQA layer)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.context import mesh_context
     from repro_torch.parallel.sharding import ShardingRules, place
     from repro_torch.runtime.steps import shard_step
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
     b, s = MESH_PREFILL
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.
                            Generator(device="cuda").manual_seed(3),
                            device="cuda")
-    with flags(**MESH_FLAGS), torch.no_grad():
+    with flags(**model_flags), torch.no_grad():
         mesh = make_host_mesh(1)
         with mesh_context(make_host_mesh(1)):
             ops.reset_launch_counts()
@@ -4831,16 +4852,99 @@ def mesh_prefill(torch, ops, flags, get_config, init_params,
         mine = ops.launch_counts()
         got = got.full_tensor()
     equal = same_bits(torch, got, want)
-    print(f"  (a) {ARCH} prefill B {b} x S {s}: logits bit for bit "
-          f"{equal}; K1/K2 {one['flash_attention']}/"
+    params = got = want = None
+    torch.cuda.empty_cache()
+    gqa = 0 if cfg.attention == "mla" else cfg.n_layers
+    print(f"  (a) {cfg.name} prefill B {b} x S {s} ({model_flags}): logits "
+          f"bit for bit {equal}; K1/K2 {one['flash_attention']}/"
           f"{one['rmsnorm_pipelined']} one card, "
           f"{mine['flash_attention']}/{mine['rmsnorm_pipelined']} on the "
           f"one-rank mesh")
-    require(equal, "phase 23 (a): prefill logits on the one-rank mesh are "
-            "not the one-card step's bits")
-    require(one == mine and mine["flash_attention"] == cfg.n_layers,
-            f"phase 23 (a): prefill launches {one} / {mine}")
+    require(equal, f"phase 23 (a): {cfg.name}'s prefill logits on the "
+            f"one-rank mesh are not the one-card step's bits")
+    require(one == mine and mine["flash_attention"] == gqa and
+            mine["rmsnorm_pipelined"] > 0,
+            f"phase 23 (a): {cfg.name}'s prefill launches {one} / {mine}")
     return {"equal": equal, "launches": mine}
+
+
+def mesh_serve_tick(torch, ops, get_config, init_params):
+    """(a) `arch` at MESH_GLOBAL_LAYERS layers, one serve tick (the
+    per-slot decode step `ServeEngine` takes) of MESH_TICK's slots, each at
+    its own position in a cache holding random keys and values: one card
+    against the one-rank mesh's per-device program, the tokens, the logits
+    and the new decode state bit for bit, K1 and K2 launched alike."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_decode_state
+    from repro_torch.parallel.context import mesh_context
+    from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                               gather, place)
+    from repro_torch.runtime import make_serve_step
+    from repro_torch.runtime.steps import shard_step
+
+    def run(arch):
+        cfg = replace(get_config(arch), n_layers=MESH_GLOBAL_LAYERS)
+        slots, cache, held = MESH_TICK
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        params = init_params(cfg, gen)
+        state = init_decode_state(cfg, slots, cache)
+        for leaf in _leaves(state):
+            if leaf.is_floating_point() and leaf.ndim >= 4:
+                leaf[:, :, :held] = torch.randn(
+                    leaf[:, :, :held].shape, generator=gen, device="cuda"
+                ).to(leaf.dtype)
+        token = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                              device="cuda")
+        pos = torch.randint(held // 2, held, (slots,), generator=gen,
+                            device="cuda")
+        with torch.no_grad():
+            mine_state = {"groups": [
+                {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in g.items()} for g in state["groups"]]}
+            with mesh_context(make_host_mesh(1)):
+                ops.reset_launch_counts()
+                want = make_serve_step(cfg, per_slot_pos=True)(
+                    params, state, token, pos)
+                torch.cuda.synchronize()
+                one = ops.launch_counts()
+            mesh = make_host_mesh(1)
+            rules = ShardingRules(mesh, cfg)
+            pspecs = rules.param_specs(params)
+            shape = ShapeConfig("tick", cache, slots, "decode")
+            sspecs = rules.decode_state_specs(mine_state, shape)
+            dp = PartitionSpec(rules.dp_spec)
+            serve = shard_step(make_serve_step(
+                cfg, per_slot_pos=True, pspecs=pspecs, sspecs=sspecs), mesh,
+                (dp, rules.logits_spec(shape), sspecs))
+            ops.reset_launch_counts()
+            got = serve(place(params, pspecs, mesh),
+                        place(mine_state, sspecs, mesh),
+                        place(token, dp, mesh), place(pos, dp, mesh))
+            torch.cuda.synchronize()
+            mine = ops.launch_counts()
+            got_state = gather(got[2])
+            equal = all(same_bits(torch, a.full_tensor(), b)
+                        for a, b in zip(got[:2], want[:2])) and all(
+                same_bits(torch, a, b) for a, b in zip(
+                    _leaves(got_state), _leaves(want[2])))
+        print(f"  (a) {cfg.name} serve tick ({slots} slots, positions "
+              f"{held // 2}-{held - 1}, global): tokens, logits and state "
+              f"bit for bit {equal}; K1/K2 {one['flash_attention']}/"
+              f"{one['rmsnorm_pipelined']} one card, "
+              f"{mine['flash_attention']}/{mine['rmsnorm_pipelined']} on "
+              f"the one-rank mesh")
+        require(equal, f"phase 23 (a): {cfg.name}'s serve tick on the "
+                f"one-rank mesh is not the one-card step's bits")
+        require(one == mine and mine["rmsnorm_pipelined"] > 0,
+                f"phase 23 (a): {cfg.name}'s tick launches {one} / {mine}")
+        return {"equal": equal, "launches": mine}
+
+    out = {}
+    for arch, _ in MESH_GLOBAL:
+        out[arch] = run(arch)
+        torch.cuda.empty_cache()
+    return out
 
 
 def mesh_cell_program():
@@ -4881,19 +4985,64 @@ def mesh_cell_program():
             "seconds": seconds}
 
 
-def mesh_rank(rank, port, out_path):
-    """(c) One of four NCCL ranks, one card each: qwen2-0.5b at full width
-    on MESH_RANKS_LAYERS layers in f32, one train step on a (2, 2) mesh,
-    its first moments gathered (0.1 x the clipped gradient after a step
-    from zero moments); rank 0 also takes the one-card step on the kernel
-    path and on the forced-plain path and writes the largest gaps to
-    `out_path`."""
+def mesh_rank_state(torch, cfg, specs, mesh):
+    """(c) a fresh train state (weights of seed 0, zero moments, step 3)
+    laid out on `mesh` by `specs` without the whole state on one card:
+    the weights drawn whole, each rank keeping its cut of them and of
+    their f32 master copy and zero moments by the optimizer's specs, the
+    whole weights then freed: no card holds the whole f32 state of both
+    MoE configs at 2 layers and a step's transients."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import (_at, local_part, placements,
+                                               tree_map_with_path)
+    dm = mesh.device_mesh
+    coords = dict(zip(mesh.axis_names, dm.get_coordinate()))
+
+    def cut(t, spec):
+        return DTensor.from_local(
+            local_part(t, spec, mesh, coords).clone(), dm,
+            placements(spec, mesh), run_check=False, shape=t.shape,
+            stride=t.contiguous().stride())
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ospecs = specs["opt"]
+
+    def moment(kind):
+        return tree_map_with_path(lambda path, p: cut(
+            p.detach().float() if kind == "master" else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device),
+            _at(ospecs[kind], path)), params)
+
+    state = {"params": tree_map_with_path(
+        lambda path, p: cut(p, _at(specs["params"], path)), params),
+        "opt": {"mu": moment("mu"), "nu": moment("nu"),
+                "master": moment("master"),
+                "count": cut(torch.zeros((), dtype=torch.int32,
+                                         device="cuda"), ospecs["count"])},
+        "step": cut(torch.full((), 3, dtype=torch.int32, device="cuda"),
+                    specs["step"])}
+    params = None
+    torch.cuda.empty_cache()
+    return state
+
+
+def mesh_rank(rank, port, out_path, archs=MESH_RANKS_ARCHS):
+    """(c) One of four NCCL ranks, one card each: each config of `archs`
+    at full width on MESH_RANKS_LAYERS layers in f32 (the
+    MoE configs under the default global form), one train step on a (2, 2)
+    mesh, its first moments gathered (0.1 x the clipped gradient after a
+    step from zero moments); rank 0 also takes the one-card gradients on
+    the kernel path and on the forced-plain path, as first moments, and
+    writes the largest gaps to `out_path`, one record a config."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, loss_fn
     from repro_torch.models.flags import flags
+    from repro_torch.optim import AdamWConfig
     from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                                gather, place)
     from repro_torch.runtime import init_train_state, make_train_step
@@ -4901,66 +5050,97 @@ def mesh_rank(rank, port, out_path):
     from repro_torch.runtime.steps import shard_step, train_specs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(rank)
+    # the other ranks wait at a barrier while rank 0 takes the one-card
+    # gradients
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=4)
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(minutes=30))
+    records = {}
     try:
-        cfg = replace(get_config(ARCH), n_layers=MESH_RANKS_LAYERS,
-                      dtype="float32")
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
-                               generator=gen, device="cuda")
-        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-        options = TrainOptions(warmup_steps=1)
+        for arch in archs:
+            cfg = replace(get_config(arch), n_layers=MESH_RANKS_LAYERS,
+                          dtype="float32")
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                   generator=gen, device="cuda")
+            batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+            options = TrainOptions(warmup_steps=1)
 
-        def fresh():
-            st = init_train_state(
-                cfg, torch.Generator(device="cuda").manual_seed(0))
-            st["step"].fill_(3)
-            return st
+            mesh = make_host_mesh(2)
+            rules = ShardingRules(mesh, cfg)
+            specs = train_specs(rules, init_train_state(cfg, device="meta"))
+            step = shard_step(
+                make_train_step(cfg, options=options, specs=specs),
+                mesh, (specs, {k: PartitionSpec() for k in
+                               ("loss", "grad_norm", "lr_scale")}))
+            bspec = PartitionSpec(rules.dp_spec, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, metrics = step(mesh_rank_state(torch, cfg, specs, mesh),
+                                place(batch, {"tokens": bspec,
+                                              "labels": bspec}, mesh))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            # after one AdamW step from zero moments mu is 0.1 x the
+            # clipped gradient: phase 15's rule on the gradients, leaf by
+            # leaf, the one card's taken without its optimizer state
+            got = [t.cpu() for t in _leaves(gather(new["opt"]["mu"]))]
+            got_m = {k: v.full_tensor().item() for k, v in metrics.items()}
+            new = metrics = None
+            torch.cuda.empty_cache()
+            if rank == 0:
+                params = init_params(
+                    cfg, torch.Generator(device="cuda").manual_seed(0))
+                b1 = AdamWConfig().b1
 
-        mesh = make_host_mesh(2)
-        rules = ShardingRules(mesh, cfg)
-        specs = train_specs(rules, fresh())
-        step = shard_step(
-            make_train_step(cfg, options=options, specs=specs),
-            mesh, (specs, {k: PartitionSpec() for k in
-                           ("loss", "grad_norm", "lr_scale")}))
-        bspec = PartitionSpec(rules.dp_spec, None)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        new, metrics = step(place(fresh(), specs, mesh),
-                            place(batch, {"tokens": bspec, "labels": bspec},
-                                  mesh))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        # after one AdamW step from zero moments mu is 0.1 x the clipped
-        # gradient: phase 15's rule on the gradients, leaf by leaf
-        got = [t for t in _leaves(gather(new["opt"]["mu"]))]
-        got_m = {k: v.full_tensor().item() for k, v in metrics.items()}
-        if rank == 0:
-            one = make_train_step(cfg, options=options)
-            kernel, km = one(fresh(), batch)
-            with flags(force_plain=True):
-                plain, pm = one(fresh(), batch)
-            kl, pl = list(_leaves(kernel["opt"]["mu"])), \
-                list(_leaves(plain["opt"]["mu"]))
-            spread = max((a - b).abs().max().item() for a, b in zip(kl, pl))
-            gap = max((a - b).abs().max().item() for a, b in zip(got, kl))
-            Path(out_path).write_text(json.dumps({
-                "seconds": seconds, "metrics": got_m,
-                "one_card": {k: v.item() for k, v in km.items()},
-                "plain": {k: v.item() for k, v in pm.items()},
-                "gap": gap, "spread": spread}))
-        dist.barrier()
+                def moments(**model_flags):
+                    """The clipped gradients times 1 - b1, in place: no
+                    copy of a gradient beside the weights'."""
+                    leaves = [t.requires_grad_() for t in _leaves(params)]
+                    with flags(**model_flags):
+                        loss = loss_fn(params, cfg, batch,
+                                       chunk=options.chunk,
+                                       remat=options.remat)
+                    grads = list(torch.autograd.grad(loss, leaves))
+                    for t in leaves:
+                        t.requires_grad_(False)
+                    norm = torch.sqrt(sum(torch.sum(torch.square(g))
+                                          for g in grads))
+                    scale = torch.clamp(options.clip_norm / torch.clamp(
+                        norm, min=1e-12), max=1.0)
+                    return loss.item(), [g.mul_(scale).mul_(1 - b1)
+                                         for g in grads]
+
+                k_loss, kernel = moments()
+                kernel = [g.cpu() for g in kernel]
+                torch.cuda.empty_cache()
+                p_loss, plain = moments(force_plain=True)
+                spread = max((a.cuda() - b).abs().max().item()
+                             for a, b in zip(kernel, plain))
+                plain = None
+                gap = max((a.cuda() - b.cuda()).abs().max().item()
+                          for a, b in zip(got, kernel))
+                records[arch] = {
+                    "seconds": seconds, "peak_bytes": peak,
+                    "metrics": got_m, "one_card_loss": k_loss,
+                    "plain_loss": p_loss, "gap": gap, "spread": spread}
+                # each config's record as it is taken
+                Path(out_path).write_text(json.dumps(records))
+                params = kernel = None
+            got = None
+            torch.cuda.empty_cache()
+            dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def mesh_four_ranks(torch):
+def mesh_four_ranks(torch, archs=MESH_RANKS_ARCHS):
     """(c) where four cards exist: four spawned NCCL ranks (`mesh_rank`),
-    their step's gradients (as its first moments) within MESH_RANKS_FACTOR
-    times the one-card right paths' spread (kernel against forced-plain)
-    of the one-card step's, leaf by leaf, phase 15's f32 rule."""
+    for each config of `archs` their step's gradients (as its
+    first moments) within MESH_RANKS_FACTOR times the one-card right
+    paths' spread (kernel against forced-plain) of the one-card
+    gradients, leaf by leaf, phase 15's f32 rule."""
     n = torch.cuda.device_count()
     if n < 4:
         print(f"  (c) 4-rank: not run, {n} card(s)")
@@ -4968,35 +5148,42 @@ def mesh_four_ranks(torch):
     import torch.multiprocessing as mp
     out = ROOT / "chiprun_out" / "phase23" / "four_ranks.json"
     out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
     ctx = mp.get_context("spawn")
     port = free_port()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=mesh_rank, args=(r, port, str(out)))
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, str(out), archs))
              for r in range(4)]
     for p in procs:
         p.start()
     try:
         for p in procs:
-            p.join(timeout=300)
+            p.join(timeout=900)
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
+    # the configs rank 0 finished, printed whether or not the others did
+    records = json.loads(out.read_text()) if out.exists() else {}
+    for arch, res in records.items():
+        res["limit"] = MESH_RANKS_FACTOR * res["spread"]
+        print(f"  (c) 4 NCCL ranks, (2, 2), {arch} f32 on "
+              f"{MESH_RANKS_LAYERS} layers, B {TRAIN_B} x S {TRAIN_S}: step "
+              f"{res['seconds'] * 1e3:.3f} ms (first call), peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB a rank, loss "
+              f"{res['metrics']['loss']:.7f} / one card "
+              f"{res['one_card_loss']:.7f} (plain {res['plain_loss']:.7f});"
+              f" the gradients' (0.1 x, as first moments) largest gap to "
+              f"the one-card kernel path {res['gap']:.3e}, limit "
+              f"{MESH_RANKS_FACTOR:g} x the right paths' spread "
+              f"{res['spread']:.3e} = {res['limit']:.3e}")
+    print(f"  (c) {time.perf_counter() - t0:.1f} s")
     require(all(p.exitcode == 0 for p in procs),
             f"phase 23 (c): rank exit codes {[p.exitcode for p in procs]}")
-    res = json.loads(out.read_text())
-    limit = MESH_RANKS_FACTOR * res["spread"]
-    print(f"  (c) 4 NCCL ranks, (2, 2), {ARCH} f32 on {MESH_RANKS_LAYERS} "
-          f"layers, B {TRAIN_B} x S {TRAIN_S}: step {res['seconds'] * 1e3:.3f}"
-          f" ms (first call), loss {res['metrics']['loss']:.7f} / one card "
-          f"{res['one_card']['loss']:.7f}; the gradients' (0.1 x, as first "
-          f"moments) largest gap to the one-card "
-          f"kernel path {res['gap']:.3e}, limit {MESH_RANKS_FACTOR:g} x the "
-          f"right paths' spread {res['spread']:.3e} = {limit:.3e} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    require(res["gap"] <= limit, f"phase 23 (c): gap {res['gap']} > "
-            f"{limit}")
-    return {"run": True, **res, "limit": limit}
+    for arch, res in records.items():
+        require(res["gap"] <= res["limit"], f"phase 23 (c): {arch} gap "
+                f"{res['gap']} > {res['limit']}")
+    return {"run": True, "configs": records}
 
 
 def run_mesh(torch, ops, flags, get_config, init_params, make_prefill_step,
@@ -5004,18 +5191,33 @@ def run_mesh(torch, ops, flags, get_config, init_params, make_prefill_step,
     """Phase 23: (a) on a one-rank NCCL group, (b), (c)."""
     t_phase = time.perf_counter()
     dist = one_rank_group(torch)
+    global_form = {}
     try:
         moe = mesh_moe_step(torch, ops, flags, get_config, runtime, data)
         prefill = mesh_prefill(torch, ops, flags, get_config, init_params,
                                make_prefill_step)
+        t_global = time.perf_counter()
+        for arch, trains in MESH_GLOBAL:
+            row = global_form[arch] = {}
+            if trains:
+                row["train"] = mesh_moe_step(torch, ops, flags, get_config,
+                                             runtime, data, arch, {})
+            row["prefill"] = mesh_prefill(
+                torch, ops, flags, get_config, init_params,
+                make_prefill_step, arch, MESH_GLOBAL_LAYERS, {})
+        for arch, tick in mesh_serve_tick(torch, ops, get_config,
+                                          init_params).items():
+            global_form[arch]["tick"] = tick
+        t_global = time.perf_counter() - t_global
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     t_a = time.perf_counter() - t_phase
     cell = mesh_cell_program()
     ranks = mesh_four_ranks(torch)
-    return {"moe_step": moe, "prefill": prefill, "cell": cell,
-            "four_ranks": ranks, "seconds_a": t_a,
+    return {"moe_step": moe, "prefill": prefill, "global": global_form,
+            "cell": cell, "four_ranks": ranks, "seconds_a": t_a,
+            "seconds_global": t_global,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -5411,8 +5613,11 @@ def main(argv=None) -> int:
 
     # phase 23
     print(f"phase 23: the per-device program of a mesh: (a) "
-          f"{MOE_TRAIN_ARCH}'s train step and {ARCH}'s prefill on a "
-          f"one-rank NCCL group against one card, (b) {MESH_CELL[0]} "
+          f"{MOE_TRAIN_ARCH}'s train step and {ARCH}'s prefill, and the "
+          f"MoE configs under the global form ({MESH_GLOBAL_LAYERS} layers: "
+          f"{MESH_GLOBAL[0][0]}'s train step, both configs' prefill and "
+          f"serve tick), on a one-rank NCCL group against one card, (b) "
+          f"{MESH_CELL[0]} "
           f"{MESH_CELL[1]}'s program on the {MESH_CELL[2]} production "
           f"mesh, (c) four ranks where four cards exist ({smi})")
     meshed = run_mesh(torch, ops, flags, get_config, init_params,
@@ -5431,7 +5636,10 @@ def main(argv=None) -> int:
                          fused_ssm["bf16"].values()) + tuple(dry["cells"]) + \
         tuple(row for c in hill["cells"].values() for row in c["variants"]) \
         + (moe_train["train"],) + tuple(moe_train["driver"]["runs"].values()) \
-        + (meshed["moe_step"]["one_rank_mesh"], meshed["prefill"])
+        + (meshed["moe_step"]["one_rank_mesh"], meshed["prefill"]) + tuple(
+            run["one_rank_mesh"] if part == "train" else run
+            for row in meshed["global"].values()
+            for part, run in row.items())
     kernels = [
         {"name": "flash_attention", "route": "cuda", "status": "ok",
          "source": "src/repro_torch/csrc/flash_attention_tc.cu",

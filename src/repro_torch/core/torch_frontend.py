@@ -314,6 +314,7 @@ class _Recorder(TorchDispatchMode):
         self.open_region: Optional[Tuple[int, str]] = None  # (depth, name)
         self.kernel_calls: Dict[str, int] = {}
         self.body: Optional[_Body] = None
+        self.effects: List[str] = []  # ops that write one of their inputs
         self.trip: Optional[_Trip] = None
 
     # -- naming -----------------------------------------------------------
@@ -457,6 +458,8 @@ class _Recorder(TorchDispatchMode):
             _annotate(instr, func, flat_in)
         self.comp.add(instr)
         self.bind(first, instr.name)
+        if func._schema.is_mutable:
+            self.effects.append(instr.name)
         for i, extra in enumerate(flat_out[1:], start=1):
             alias = Instruction(
                 name=f"v{next(self.counter)}", opcode="get-tuple-element",
@@ -779,6 +782,24 @@ def loop(body: Callable, carry, xs):
     return carry
 
 
+def _unread(comp: Computation, live: List[str]) -> List[str]:
+    """The paths of `comp`'s parameters that nothing in `live` (the
+    outputs, and the ops that write an input) reads, through the operands
+    of `comp`: the arguments `jax.jit` would leave out of the compiled
+    step (`keep_unused=False`, after dead code is removed)."""
+    seen, todo = set(), list(live)
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        instr = comp.get(name)
+        if instr is not None:
+            todo.extend(instr.operands)
+    return [i.attributes["path"] for i in comp.instructions
+            if i.opcode == "parameter" and i.name not in seen]
+
+
 def capture(fn: Callable, *args, name: Optional[str] = None,
             device=None, loops: bool = True) -> Module:
     """Capture `fn(*args)` into a `Module`.
@@ -790,7 +811,9 @@ def capture(fn: Callable, *args, name: Optional[str] = None,
     A `loop` is one `while` unless `loops` is False, which records every
     trip in line.  The returned module's `kernel_calls` counts the regions
     of each hand kernel the program runs, a loop body's once a trip
-    ({"flash_attention": 24, ...})."""
+    ({"flash_attention": 24, ...}), and its `unread_parameters` lists the
+    paths of the arguments (`"1.labels"`) the program does not read
+    (`_unread`)."""
     name = name or getattr(fn, "__name__", "fn")
     module = Module(name=name, source="torch")
     comp = Computation(name="c0_entry", kind="entry")
@@ -822,12 +845,14 @@ def capture(fn: Callable, *args, name: Optional[str] = None,
             out = fn(*fargs)
     finally:
         _ACTIVE = None
-    for leaf in reversed([o for o in tree_flatten(out)[0]
-                          if isinstance(o, torch.Tensor)]):
-        root = comp.get(recorder.names.get(id(leaf), ""))
+    outputs = [recorder.names.get(id(o), "") for o in tree_flatten(out)[0]
+               if isinstance(o, torch.Tensor)]
+    for name in reversed(outputs):
+        root = comp.get(name)
         if root is not None:
             root.is_root = True
             break
     module.kernel_calls = dict(recorder.kernel_calls)
+    module.unread_parameters = _unread(comp, outputs + recorder.effects)
     _apply_fused_regions(module)
     return module

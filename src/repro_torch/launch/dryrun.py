@@ -19,8 +19,9 @@ For each cell this:
      sizes have no counterpart without a compiler and are recorded as
      absent, `None`, never estimated), and each argument tree's bytes a
      device under the specs (`argument_bytes`, of the uncut cell where
-     `--layers` cuts the depth; a prefill program takes no labels,
-     `program_inputs`), and whether they fit the `--hw` backend;
+     `--layers` cuts the depth; only the arguments the captured program
+     reads, as the reference's compiled step keeps only those,
+     `unread_leaves`), and whether they fit the `--hw` backend;
   4. derives the roofline terms, the collective term included, from the
      captured Module with the port's `core/roofline.compute_roofline`, and
   5. optionally runs LEO's analysis of the Module (--analyze).
@@ -74,29 +75,64 @@ def argument_trees(cfg, shape, rules, inputs) -> Dict[str, Tuple[Any, Any]]:
     return trees
 
 
-def argument_bytes(cfg, shape, mesh, inputs) -> Dict[str, int]:
-    """Each argument tree's bytes on one device of `mesh` under the specs."""
+def argument_bytes(cfg, shape, mesh, inputs, unread=frozenset()
+                   ) -> Dict[str, int]:
+    """Each argument tree's bytes on one device of `mesh` under the specs,
+    leaving out the leaves in `unread` ((tree, path) pairs,
+    `unread_leaves`)."""
     from ..parallel.sharding import ShardingRules, per_device_bytes
     rules = ShardingRules(mesh, cfg)
-    return {name: per_device_bytes(specs, tree, mesh)
+    return {name: per_device_bytes(specs, _read(tree, name, unread), mesh)
             for name, (tree, specs) in
             argument_trees(cfg, shape, rules, inputs).items()}
 
 
-def program_inputs(shape, inputs):
-    """`inputs` as the cell's program takes them: a prefill program reads
-    no labels and takes none, as the reference's compiled step keeps only
-    the arguments it reads (`jax.jit`'s `keep_unused=False`)."""
-    if shape.kind != "prefill":
-        return inputs
-    return {**inputs, "batch": {k: v for k, v in inputs["batch"].items()
-                                if k != "labels"}}
+def _read(tree, name: str, unread, path=()):
+    """`tree` (argument tree `name`) without its leaves in `unread`; an
+    unread leaf at the root leaves an empty tree."""
+    if (name, "/".join(path)) in unread:
+        return {}
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _read(v, name, unread, path + (str(k),))
+            for k, v in tree.items()
+            if (name, "/".join(path + (str(k),))) not in unread}
+
+
+def unread_leaves(shape, module) -> frozenset:
+    """The argument leaves the captured step `module` does not read, as
+    (tree, path) pairs of `argument_trees` (the batch's labels in a
+    prefill, the position of a decode whose mixers read none): the
+    arguments the reference's compiled step leaves out (`jax.jit`'s
+    `keep_unused=False`)."""
+    trees = {"train": (("state",), ("batch",)),
+             "prefill": (("params",), ("batch",)),
+             "decode": (("params",), ("decode_state",), ("batch", "token"),
+                        ("batch", "pos"))}[shape.kind]
+    out = set()
+    for path in module.unread_parameters:
+        index, *rest = path.split(".")
+        name, *inner = trees[int(index)] + tuple(rest)
+        if name == "state":
+            name, *inner = inner
+        out.add((name, "/".join(inner)))
+    return frozenset(out)
+
+
+def program_inputs(shape, inputs, unread):
+    """`inputs` without the leaves in `unread` (`unread_leaves`): the
+    arguments the cell's program reads."""
+    if shape.kind == "train":
+        return {"state": {k: _read(v, k, unread)
+                          for k, v in inputs["state"].items()},
+                "batch": _read(inputs["batch"], "batch", unread)}
+    return {k: _read(v, k, unread) for k, v in inputs.items()}
 
 
 def cell_program(cfg, shape, inputs, device, opts=None, mesh=None):
     """(step, args): the cell's step and its arguments in call order
     (`inputs` from `specs.input_specs`, or real tensors of the same
-    structure; a prefill batch's labels left out, `program_inputs`).  On
+    structure; a prefill step reads no labels).  On
     `mesh` the step is each rank's program under the mesh's sharding rules
     and the arguments are rank 0's shards: meta stand-ins of their shapes
     where the mesh cuts a leaf, the leaf itself where it does not."""
@@ -106,7 +142,6 @@ def cell_program(cfg, shape, inputs, device, opts=None, mesh=None):
         tree_map_with_path
     from ..runtime.steps import (make_prefill_step, make_serve_step,
                                  make_train_step)
-    inputs = program_inputs(shape, inputs)
     specs = {}
     if mesh is not None:
         trees = argument_trees(cfg, shape, ShardingRules(mesh, cfg), inputs)
@@ -185,8 +220,6 @@ def lower_cell(cfg, shape, mesh, opts=None, inputs=None, loops=True):
         opts = cell_options(cfg, shape, mesh)
     if inputs is None:
         inputs = S.input_specs(cfg, shape)
-    args_bytes = sum(argument_bytes(cfg, shape, mesh, program_inputs(
-        shape, inputs)).values())
     step, args = cell_program(cfg, shape, inputs, mesh.device, opts, mesh)
     outputs = []
 
@@ -205,8 +238,11 @@ def lower_cell(cfg, shape, mesh, opts=None, inputs=None, loops=True):
         module = capture(traced, *args, name=f"{shape.kind}_step",
                          device=mesh.device, loops=loops)
     secs = time.time() - t0
+    args_bytes = sum(argument_bytes(cfg, shape, mesh, inputs, unread_leaves(
+        shape, module)).values())
     captured = sum(i.shape.byte_size for i in module.computations[
-        module.entry].instructions if i.opcode == "parameter")
+        module.entry].instructions if i.opcode == "parameter" and
+        i.attributes["path"] not in module.unread_parameters)
     if captured != args_bytes:
         raise RuntimeError(f"lower_cell: the captured program's arguments "
                            f"are {captured} bytes a device, the specs' "
@@ -312,8 +348,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
         hw = get_backend(hw_name).hw
         with flags_ctx(**(model_flags or {})), mesh_cm as mesh:
             chips = mesh.size
-            per_tree = argument_bytes(cfg, shape, mesh, program_inputs(
-                shape, S.input_specs(cfg, shape)))
             run_cfg, reduced = cfg, []
             if layers and layers < cfg.n_layers:
                 reduced.append(f"n_layers {cfg.n_layers} -> {layers}")
@@ -321,6 +355,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
             # the uncut config's micro-batches: a depth cut keeps the loop
             opts = cell_options(cfg, shape, mesh)
             module, mem, secs = lower_cell(run_cfg, shape, mesh, opts=opts)
+            per_tree = argument_bytes(cfg, shape, mesh,
+                                      S.input_specs(cfg, shape),
+                                      unread_leaves(shape, module))
             rl = compute_roofline(
                 module, hw, chips=chips, label=label,
                 model_flops=model_flops(run_cfg, shape))

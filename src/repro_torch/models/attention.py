@@ -17,6 +17,13 @@ dim for q, k and v.  Its norms (`q_norm`, `kv_norm`) go through the RMSNorm
 kernel as every norm does.  Decode is the reference's absorbed form against
 a compressed, layer-stacked cache {"kv_c" (L, B, S, kv_lora), "k_rope" (L,
 B, S, qk_rope)}, one position per batch slot.
+
+In a per-device program whose rules cut the heads over "model", both
+kinds run on a rank's heads, each reading its local head count off its
+weights' shapes, and return its partial sum of `wo`'s rows.  MLA's latent
+(`wkv_a`, the norms, the compressed cache) is whole on every rank; `wq_a`'s
+q_lora columns are cut, and its output is all-gathered before `q_norm`
+(`_mla_q`, `_mla_heads`).
 """
 from __future__ import annotations
 
@@ -289,19 +296,42 @@ def init_mla(cfg: ArchConfig, reps: int, normal, dtype: torch.dtype,
     return p
 
 
+def _mla_heads(p: Params, cfg: ArchConfig):
+    """(p, this rank's heads) of an MLA layer.  In a per-device program
+    whose rules cut the heads over "model" (`wq_b` and `wkv_b` by their
+    head-major columns, (q_lora, H, nope + rope) and (r, H, nope + vd),
+    `wo` by its rows), each rank runs its heads, a contiguous block, and
+    the leaves left whole there (`wkv_a`, the norms, and `wq_a` where the
+    rules keep its q_lora columns whole) get their gradients, partial from
+    each rank's heads, summed over "model"."""
+    h = p["wkv_b"].shape[-1] // (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    if h != cfg.n_heads:
+        whole = ("q_norm", "wkv_a", "kv_norm") + (
+            ("wq_a",) if cfg.q_lora_rank and
+            p["wq_a"].shape[-1] == cfg.q_lora_rank else ())
+        p = {k: (spmd.copy_to(w, "model") if k in whole else w)
+             for k, w in p.items()}
+    return p, h
+
+
 def _mla_q(p: Params, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor):
     """x (B, S, d), positions broadcastable to (B, S) -> q_nope (B, S, H,
-    nope), q_rope (B, S, H, rope) with RoPE applied."""
+    nope), q_rope (B, S, H, rope) with RoPE applied, over the heads of
+    `wq_b` (or `wq`).  Where the rules cut `wq_a`'s q_lora columns over
+    "model", its output (B, S, q_lora / tp) is all-gathered before
+    `q_norm`, which normalizes the whole row."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
-        q = linear(rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps),
-                   p["wq_b"])
+        q_a = linear(x, p["wq_a"])
+        if q_a.shape[-1] != cfg.q_lora_rank:
+            # its users run this rank's heads: their gradients are partial
+            q_a = spmd.all_gather(q_a, "model", -1, bwd="sum")
+        q = linear(rmsnorm(q_a, p["q_norm"], cfg.norm_eps), p["wq_b"])
     else:
         q = linear(x, p["wq"])
-    q = q.reshape(b, s, h, nope + rope_d)
+    q = q.reshape(b, s, -1, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
@@ -327,9 +357,11 @@ def mla_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     the one RoPE key broadcast to all H heads, and `chunked_attention` with
     q/k heads of nope + rope and v heads of v_head_dim (module docstring:
     no kernel takes two head dims).  Its scale, 1/sqrt(q's head dim), is
-    the absorbed decode's 1/sqrt(nope + rope)."""
+    the absorbed decode's 1/sqrt(nope + rope).  In a per-device program
+    whose rules cut the heads, this rank's heads (`_mla_heads`), and the
+    output is this rank's partial sum of `wo`'s rows."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    p, h = _mla_heads(p, cfg)
     nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
         cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
@@ -355,10 +387,13 @@ def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: torch.Tensor,
     """Absorbed-projection MLA decode: scores in kv_lora space, O(r) per
     cached token instead of per-head decompression.  x (B, d); pos (B,)
     int, one position per batch slot.  `cache` holds the layer-stacked
-    compressed cache (L, B, S, r) and (L, B, S, rope); the new token is
-    written in place at (layer_idx, b, pos[b]) (see `attn_decode`).
-    Returns y (B, d)."""
+    compressed cache (L, B, S, r) and (L, B, S, rope), whole on every
+    rank of "model", which writes the new token alike in place at
+    (layer_idx, b, pos[b]) (see `attn_decode`) and reads the whole cache
+    for its own heads (`_mla_heads`).  Returns y (B, d), this rank's
+    partial sum where the heads are cut."""
     b = x.shape[0]
+    p, _ = _mla_heads(p, cfg)
     q_nope, q_rope = _mla_q(p, x[:, None], cfg, pos[:, None])
     kv_c, k_rope = _mla_kv(p, x[:, None], cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
@@ -390,9 +425,9 @@ def _mla_decode_core(p: Params, x: torch.Tensor, cfg: ArchConfig,
     reference's decode gives this one's numbers
     (`tests/test_torch_mla.py`)."""
     b = x.shape[0]
-    h = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
         cfg.v_head_dim
+    h = p["wkv_b"].shape[-1] // (nope + vd)    # this rank's heads
     r = cfg.kv_lora_rank
     w_b = p["wkv_b"].reshape(r, h, nope + vd)
     # Absorb W_uk into q: q_c (B, H, r)

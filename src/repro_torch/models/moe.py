@@ -34,13 +34,37 @@ alone (T = 1, capacity 8, nothing dropped).  Here the slots are one batched
 product over (G, E, C, D), so the expert weights are read once a layer,
 not once a slot.
 
+In a per-device program whose rules cut the expert banks over "model" by
+expert (`parallel/spmd.py`), each rank runs the products of its own E /
+tp experts only, under either form.  In the global form (`moe_forward`,
+`moe_forward_slots`, both decode forms) every rank routes and dispatches
+the data-gathered batch alike, against the reference's global capacity,
+fills the (E / tp, C, D) buffers of its own experts (every other
+assignment is dropped there), runs them, and combines their outputs with
+their gates into a partial sum of each token's y; one all-reduce over
+"model" sums the ranks' partial sums, with the shared experts' partial
+sum (their columns and rows cut as the dense MLP's) added before it.  The
+other way open, an all-gather of the (E / tp, C, D) outputs before a whole
+combine, would keep one card's sum order on any mesh, but moves the whole
+buffer, capacity_factor k T D elements a layer against the all-reduce's
+T D, and holds it on every rank: for a deepseek-v2 train_4k layer on the
+16x16 mesh (T 65536 tokens a micro-batch, C 3072) 160 x 3072 x 5120 bf16
+values, 5.0 GB, against 65536 x 5120, 0.67 GB.  Each rank still sums a
+token's contributions in ascending expert id, so a run gives the same
+bits run after run; across meshes the partial sums meet in another
+order.  Where the batch is cut over data axes, the backward of the expert
+products, which every data rank would otherwise run alike on its own
+tokens' share of the gradient, runs on the rank's share of the capacity
+rows (`_RowSplitExperts`), as the reference's compile splits it.
+
 `moe_forward_ep` is the reference's shard_map expert parallelism: each
 shard of the current mesh routes its own tokens (`_local_dispatch_compute`)
 and exchanges them with the expert shards by two all-to-alls over "model"
 (`all_to_all_single`, tiled as `jax.lax.all_to_all`), in the per-device
 program of the mesh (`parallel/spmd.py`); on the card's own `(1, 1)` mesh
 the all-to-alls are the identity; off a mesh it falls back to
-`moe_forward`.
+`moe_forward`.  Its shared experts run whole on every rank, gathered
+over "model", as the reference's shard_map takes them.
 """
 from __future__ import annotations
 
@@ -156,8 +180,17 @@ def dispatch(expert_ids: torch.Tensor, cap: int) -> Dispatch:
     return Dispatch(order, tokens, keep, dest, pos)
 
 
-def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
-    """buf (G, E, C, D) -> each expert's MLP on its rows, (G, E, C, D)."""
+def _act(hg, hu: torch.Tensor) -> torch.Tensor:
+    """The experts' hidden activation from the gate's and the up
+    projection's outputs (`hg` None under GELU)."""
+    if hg is None:
+        return F.gelu(hu, approximate="tanh")
+    return F.silu(hg) * hu
+
+
+def _expert_mlp(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """buf (G, E, C, D) -> each of the bank's E experts' MLP on its rows,
+    (G, E, C, D)."""
     dtype = buf.dtype
     if "w_gate" in p:
         h = F.silu(torch.einsum("gecd,edf->gecf", buf,
@@ -167,6 +200,113 @@ def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
         h = F.gelu(torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dtype)),
                    approximate="tanh")
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dtype))
+
+
+class _RowSplitExperts(torch.autograd.Function):
+    """`_expert_mlp` on a buffer of data-gathered tokens, which every rank
+    of the data axes `axes` holds alike (`moe_forward`): the forward whole,
+    and the backward on this rank's share of the capacity rows.  The
+    outputs' gradient arrives partial over the data axes (each rank's own
+    tokens'); it is reduce-scattered over them by rows, so each rank runs
+    the backward's products on C / n rows: the weights' gradients are its
+    rows' share (partial over the data axes, as every weight's gradient
+    is), the buffer's is its rows in zeros.  The reference's compile
+    splits this backward over the data axes likewise (by the experts' ff
+    columns), and runs its forward whole."""
+
+    @staticmethod
+    def forward(ctx, buf, axes, w_gate, w_up, w_down):
+        hg = None if w_gate is None else \
+            torch.einsum("gecd,edf->gecf", buf, w_gate)
+        hu = torch.einsum("gecd,edf->gecf", buf, w_up)
+        ctx.axes = axes
+        ctx.save_for_backward(buf, hg, hu, w_gate, w_up, w_down)
+        return torch.einsum("gecf,efd->gecd", _act(hg, hu), w_down)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, hg, hu, w_gate, w_up, w_down = ctx.saved_tensors
+        axes = ctx.axes
+        g = spmd._raw_reduce_scatter(g, axes, 2)
+        buf, hu = spmd._slice(buf, axes, 2), spmd._slice(hu, axes, 2)
+        with torch.enable_grad():
+            pre = [t.detach().requires_grad_() for t in
+                   ([hu] if hg is None else [spmd._slice(hg, axes, 2), hu])]
+            h = _act(*([None] + pre if hg is None else pre))
+        dh = torch.einsum("gecd,efd->gecf", g, w_down)
+        d_pre = torch.autograd.grad(h, pre, dh)
+        d_hu = d_pre[-1]
+        d_buf = torch.einsum("gecf,edf->gecd", d_hu, w_up)
+        grads = [torch.einsum("gecd,gecf->edf", buf, d_hu),
+                 torch.einsum("gecf,gecd->efd", h.detach(), g)]
+        if hg is not None:
+            d_buf = d_buf + torch.einsum("gecf,edf->gecd", d_pre[0], w_gate)
+            grads.insert(0, torch.einsum("gecd,gecf->edf", buf, d_pre[0]))
+        else:
+            grads.insert(0, None)
+        return (spmd._pad(d_buf, axes, 2), None) + tuple(grads)
+
+
+def _experts(p: Params, buf: torch.Tensor,
+             data_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """buf (G, E, C, D) -> each of the bank's E experts' MLP on its rows,
+    (G, E, C, D).  `data_axes`: the data axes the buffer's tokens were
+    gathered over, whose ranks run the products alike; where autograd
+    records, the backward is split over them (`_RowSplitExperts`)."""
+    local = spmd.current()
+    n = 1 if local is None else local.size(data_axes)
+    weights = [p.get("w_gate"), p["w_up"], p["w_down"]]
+    if n > 1 and buf.shape[2] % n == 0 and torch.is_grad_enabled() and \
+            any(w is not None and w.requires_grad for w in weights):
+        return _RowSplitExperts.apply(buf, data_axes, *[
+            None if w is None else w.to(buf.dtype) for w in weights])
+    return _expert_mlp(p, buf)
+
+
+def _shared(p: Params, x: torch.Tensor, split: bool) -> torch.Tensor:
+    """The shared experts' MLP on x: where `split` (the rules cut its
+    columns and rows, `_split`), this rank's partial sum over "model", the
+    input's gradient summed over "model" on entry, as the dense MLP's
+    tensor-parallel form (`transformer._block`)."""
+    return mlp(spmd.copy_to(x, "model") if split else x, p)
+
+
+def _split(p: Params, cfg: ArchConfig) -> Dict[str, bool]:
+    """Which of the layer's parts hold only this rank's share, their
+    outputs partial sums over "model": the expert banks ("experts", cut
+    by expert) and the shared experts' MLP ("shared", by columns and
+    rows)."""
+    out = {"experts": p["w_up"].shape[-3] != cfg.n_experts}
+    if "shared" in p:
+        width = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+        out["shared"] = p["shared"]["w_down"].shape[-2] != width
+    return out
+
+
+def _sum(terms) -> torch.Tensor:
+    """The sum of `terms`, (tensor, partial) pairs in order: the partial
+    sums over "model" added and summed over it by one all-reduce, then the
+    terms alike on every rank added."""
+    partial = [t for t, cut in terms if cut]
+    y = None
+    if partial:
+        y = partial[0]
+        for t in partial[1:]:
+            y = y + t
+        y = spmd.all_reduce(y, "model")
+    for t, cut in terms:
+        if not cut:
+            y = t if y is None else y + t
+    return y
+
+
+def _mine(ds: Dispatch, lo: int, n: int, cap: int) -> Dispatch:
+    """`ds` restricted to experts lo .. lo + n - 1, their rows of an (n *
+    C) buffer: every other assignment is dropped here (its row clamped
+    into the buffer, its token added as zeros, its weight 0)."""
+    dest = ds.dest - lo * cap
+    keep = ds.keep & (dest >= 0) & (dest < n * cap)
+    return ds._replace(keep=keep, dest=dest.clamp(0, n * cap - 1))
 
 
 def _dispatch_buffer(x: torch.Tensor, ds: Dispatch, e: int,
@@ -249,18 +389,40 @@ def _combine(out_buf: torch.Tensor, gates: torch.Tensor, ds: Dispatch,
     return _sum_by_token(gathered, ds.pos)
 
 
-def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (G, T, D), each group routed and dispatched on its own -> (y (G,
-    T, D), aux (G,))."""
+def _routed(p: Params, x: torch.Tensor, cfg: ArchConfig,
+            data_axes: Tuple[str, ...] = ()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (G, T, D), each group routed and dispatched on its own -> (the
+    routed experts' y (G, T, D), aux (G,)).  Where the banks hold this
+    rank's experts only, y is this rank's partial sum over "model" (module
+    docstring): its experts' buffers filled from x (whose gradient, partial,
+    is summed over "model"), their outputs combined with their gates (the
+    gates' gradient likewise), every other assignment dropped here."""
     cap = _capacity(cfg, x.shape[1])
     r = route(p, x, cfg)
     ds = dispatch(r.expert_ids, cap)
-    buf = _dispatch_buffer(x, ds, cfg.n_experts, cap)
-    y = _combine(_experts(p, buf), r.gates, ds, cfg.top_k)
+    e_local, gates = p["w_up"].shape[-3], r.gates
+    if e_local != cfg.n_experts:
+        ds = _mine(ds, spmd.current().index("model") * e_local, e_local,
+                   cap)
+        x, gates = spmd.copy_to(x, "model"), spmd.copy_to(gates, "model")
+    buf = _dispatch_buffer(x, ds, e_local, cap)
+    return _combine(_experts(p, buf, data_axes), gates, ds,
+                    cfg.top_k), r.aux
+
+
+def moe_groups(p: Params, x: torch.Tensor, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (G, T, D), each group routed and dispatched on its own -> (y (G,
+    T, D), aux (G,)): the routed experts' output plus the shared
+    experts'."""
+    split = _split(p, cfg)
+    y, aux = _routed(p, x, cfg)
+    terms = [(y, split["experts"])]
     if "shared" in p:
-        y = y + mlp(x, p["shared"])
-    return y, r.aux
+        terms.append((_shared(p["shared"], x, split["shared"]),
+                      split["shared"]))
+    return _sum(terms), aux
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig
@@ -269,19 +431,26 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig
     batch routed together, the reference's `moe_forward`.  In a per-device
     program whose batch is cut over data axes, the batch's rows are
     gathered from them first, every rank routes them all alike, and keeps
-    its own rows of the result (the gradients stay partial over the data
-    axes: the gather's backward reduce-scatters, the cut's pads with
-    zeros)."""
+    its own rows of the routed experts' output (the gradients stay
+    partial over the data axes: the gather's backward reduce-scatters, the
+    cut's pads with zeros); the shared experts, which route nothing, run
+    on the rank's own rows, and one all-reduce over "model" sums both
+    parts' partial sums of those rows."""
     local = spmd.current()
-    axes = () if local is None else local.batch_axes
-    if axes:
-        x = spmd.all_gather(x, axes, 0, bwd="sum")
     b, s, d = x.shape
-    y, aux = moe_groups(p, x.reshape(1, b * s, d), cfg)
-    y = y.reshape(b, s, d)
-    if axes:
-        y = spmd.scatter(y, axes, 0, bwd="zeros")
-    return y, aux[0]
+    if local is None or local.size(local.batch_axes) == 1:
+        y, aux = moe_groups(p, x.reshape(1, b * s, d), cfg)
+        return y.reshape(b, s, d), aux[0]
+    axes = local.batch_axes
+    split = _split(p, cfg)
+    xg = spmd.all_gather(x, axes, 0, bwd="sum")
+    y, aux = _routed(p, xg.reshape(1, -1, d), cfg, axes)
+    terms = [(spmd.scatter(y.reshape(xg.shape), axes, 0, bwd="zeros"),
+              split["experts"])]
+    if "shared" in p:
+        terms.append((_shared(p["shared"], x, split["shared"]),
+                      split["shared"]))
+    return _sum(terms), aux[0]
 
 
 def moe_forward_slots(p: Params, x: torch.Tensor, cfg: ArchConfig
@@ -375,7 +544,17 @@ def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ArchConfig
     xf = x.reshape(b * s, d)
     y, aux = _local_dispatch_compute(p, xf, cfg, tp)
     if "shared" in p:
-        y = y + mlp(xf, p["shared"])
+        # the reference's shard_map takes the shared MLP whole (its
+        # in_specs `P()`), and every rank runs it alike on its tokens:
+        # gathered over "model" here, at the body's boundary, as XLA
+        # gathers it there
+        width = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+        shared = {k: (w if w.shape[0 if k == "w_down" else -1] == width
+                      else spmd.all_gather(w, "model",
+                                           0 if k == "w_down" else -1,
+                                           bwd="slice"))
+                  for k, w in p["shared"].items()}
+        y = y + mlp(xf, shared)
     if local is not None and local.batch_axes:
         # the data shards' mean (`jax.lax.pmean`); its users' gradients
         # are partial over the data axes, so its backward sums them

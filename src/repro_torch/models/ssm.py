@@ -29,6 +29,7 @@ from ..configs.base import ArchConfig
 from ..core.torch_frontend import kernel_call
 from ..kernels.ssm_scan import (discretize, ssm_fused_plain, ssm_scan,
                                 ssm_scan_chunked, ssm_scan_fused)
+from ..parallel import spmd
 from .flags import get_flags
 from .layers import linear
 
@@ -108,11 +109,33 @@ def init_ssm_state(cfg: ArchConfig, batch: int, device) -> Params:
 def ssm_decode(p: Params, x: torch.Tensor, state: Params,
                cfg: ArchConfig) -> Tuple[torch.Tensor, Params]:
     """x (B, D) one token; state {"h": (B, din, N) f32}, an O(1) update.
-    Returns (y (B, D), new state)."""
+    Returns (y (B, D), new state).
+
+    In a decode step's per-device program whose rules cut the channels
+    over "model" (`w_b`, `w_c`, `w_dt`, `a_log`, `d_skip` and `w_out` by
+    their din rows; `w_in` by its 2 din columns, x's and z's halves laid
+    end to end), each rank runs its din / tp channels: `w_in`'s product on
+    its columns, all-gathered over "model" so that each rank takes its
+    channels of each half; the selections' products, which sum over din,
+    summed over "model"; the state, whole on every rank, read and written
+    at its channels, the new channels all-gathered.  y is then this rank's
+    partial sum of `w_out`'s rows."""
     din = cfg.ssm_expand * cfg.d_model
     xz = linear(x, p["w_in"])
-    xin, z = xz[..., :din], xz[..., din:]
-    a, bx, csel = _discretize(p, xin)          # (B, din, N) x2, (B, N)
-    h = a * state["h"] + bx
+    mine = p["w_out"].shape[0]
+    if mine == din:
+        xin, z = xz[..., :din], xz[..., din:]
+        a, bx, csel = _discretize(p, xin)      # (B, din, N) x2, (B, N)
+        h = a * state["h"] + bx
+        y = torch.einsum("bdn,bn->bd", h, csel)
+        return _readout(p, y, xin, z, x.dtype), {"h": h}
+    if xz.shape[-1] != 2 * din:
+        xz = spmd.all_gather(xz, "model", -1)
+    lo = spmd.current().index("model") * mine
+    xin, z = xz[..., lo:lo + mine], xz[..., din + lo:din + lo + mine]
+    bsel, csel = (spmd.all_reduce(t, "model") for t in _selections(p, xin))
+    a, bx = discretize(xin, p["w_dt"], p["a_log"], bsel)
+    h = a * state["h"][:, lo:lo + mine] + bx
     y = torch.einsum("bdn,bn->bd", h, csel)
-    return _readout(p, y, xin, z, x.dtype), {"h": h}
+    return _readout(p, y, xin, z, x.dtype), {
+        "h": spmd.all_gather(h, "model", 1)}

@@ -235,8 +235,8 @@ def _exit(y: torch.Tensor, sp: bool, tp: bool) -> torch.Tensor:
 
 
 def _replicated(fn, h: torch.Tensor, sp: bool) -> torch.Tensor:
-    """A region with no tensor-parallel form (SSM, xLSTM, MLA, the MoE):
-    its weights are whole on every rank, and it runs alike on each."""
+    """A region with no tensor-parallel form (the SSM, xLSTM): its weights
+    are whole on every rank, and it runs alike on each."""
     return _exit(fn(_enter(h, sp, False)), sp, False)
 
 
@@ -245,8 +245,8 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
            sp: bool = False) -> torch.Tensor:
     """The mixer of one full-sequence block.  In a per-device program,
     `h` and the result are in the residual stream's layout (`sp`: cut
-    along the sequence over "model"); GQA attention whose heads the rules
-    shard over "model" runs on this rank's heads."""
+    along the sequence over "model"); attention (GQA or MLA) whose heads
+    the rules shard over "model" runs on this rank's heads."""
     if mixer == "mlstm":
         return _replicated(lambda t: xlstm_mod.mlstm_forward(
             p["mlstm"], t, cfg), h, sp)
@@ -257,8 +257,9 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
         return _replicated(lambda t: ssm_mod.ssm_forward(p["ssm"], t, cfg),
                            h, sp)
     if mixer == "mla":
-        return _replicated(lambda t: attn_mod.mla_forward(
-            p["attn"], t, cfg, positions, chunk), h, sp)
+        tp = _mla_split(p["attn"], cfg)
+        return _exit(attn_mod.mla_forward(p["attn"], _enter(h, sp, tp), cfg,
+                                          positions, chunk), sp, tp)
     tp = p["attn"]["wq"].shape[-1] != cfg.n_heads * cfg.head_dim_
     y = _exit(attn_mod.attn_forward(p["attn"], _enter(h, sp, tp), cfg,
                                     positions, chunk), sp, tp)
@@ -266,6 +267,12 @@ def _mixer(p: Params, h: torch.Tensor, mixer: str, cfg: ArchConfig,
         y = 0.5 * (y + _replicated(lambda t: ssm_mod.ssm_forward(
             p["ssm"], t, cfg), h, sp))
     return y
+
+
+def _mla_split(p: Params, cfg: ArchConfig) -> bool:
+    """Whether an MLA layer holds only this rank's heads (`wo`'s rows cut
+    over "model")."""
+    return p["wo"].shape[-2] != cfg.n_heads * cfg.v_head_dim
 
 
 # -- forward -----------------------------------------------------------------
@@ -574,6 +581,7 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
             elif mixer == "mla":
                 y = attn_mod.mla_decode(p["attn"], h, stack["kv"], pos, cfg,
                                         layer_idx=i)
+                y = _exit(y, False, _mla_split(p["attn"], cfg))
             elif mixer in ("attn", "hybrid"):
                 y = attn_mod.attn_decode(p["attn"], h, stack["kv"], pos, cfg,
                                          layer_idx=i)
@@ -585,6 +593,9 @@ def decode_step(params: Params, state: Params, cfg: ArchConfig,
                 ys, new = ssm_mod.ssm_decode(p["ssm"], h,
                                              _layer(stack["ssm"], i), cfg)
                 _write_layer(stack["ssm"], new, i)
+                # this rank's channels' share, where the rules cut them
+                ys = _exit(ys, False, p["ssm"]["w_out"].shape[-2] !=
+                           cfg.ssm_expand * cfg.d_model)
                 y = ys if mixer == "ssm" else 0.5 * (y + ys)
             x = x + y
             if ffn == "moe":

@@ -39,8 +39,9 @@ from __future__ import annotations
 
 import contextlib
 import math
+import re
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -431,39 +432,38 @@ def sharded_dims(spec: Sequence, axes: Sequence[str]) -> Dict[int, Tuple[
 # -- a tree's leaves as the program reads them -----------------------------
 
 # the leaves whose "model" cut a layer's own tensor-parallel form reads
-# (`models/`): GQA attention's heads, the dense MLP's columns and rows,
-# the vocab-parallel embedding and head, and under `moe_impl=
-# "ep_shardmap"` the expert banks (expert parallelism).  Every other leaf
-# the rules cut over "model" is gathered whole for the layer.
-_TP_LEAVES = (r"attn/(wq|wk|wv|bq|bk|bv|wo)$", r"^embed/table$", r"^head$")
-_MLP_LEAVES = r"ffn/(w_gate|w_up|w_down)$"
+# (`models/`): attention's heads (GQA's projections; MLA's `wq_a` by its
+# q_lora columns, `wq_b`/`wkv_b` by head-major columns, `wo` by rows), the
+# dense and the shared experts' MLP by columns and rows, the expert banks
+# by expert (either MoE form), the vocab-parallel embedding and head; and
+# in a decode step the SSM's channels (`models/ssm.py::ssm_decode`).
+# Every other leaf the rules cut over "model" (the SSM's, in a train or
+# prefill step) is gathered whole for the layer.  Where the rules drop a
+# cut (heads that do not divide the axis) the leaf arrives whole and its
+# layer runs whole: each layer reads its local width off the leaf's shape.
+_TP_LEAVES = re.compile(r"attn/(wq|wk|wv|bq|bk|bv|wo|wq_a|wq_b|wkv_b)$|"
+                        r"ffn/(shared/)?(w_gate|w_up|w_down)$|"
+                        r"^embed/table$|^head$")
+_TP_DECODE_LEAVES = re.compile(r"ssm/(w_in|w_b|w_c|w_dt|a_log|d_skip|"
+                               r"w_out)$")
 
 
-def tensor_parallel_leaf(path: str, shape: Sequence[int], cfg,
-                         moe_impl: str) -> bool:
+def tensor_parallel_leaf(path: str, decode: bool = False) -> bool:
     """Whether the layer that reads the leaf at `path` runs on its "model"
-    shard as it is."""
-    import re
-    if "/shared/" in path:
-        return False
-    if any(re.search(r, path) for r in _TP_LEAVES):
-        return not re.search(r"attn/", path) or \
-            cfg.attention in ("full", "swa")
-    if re.search(_MLP_LEAVES, path):
-        moe = cfg.n_experts > 0 and len(shape) >= 4
-        return not moe or moe_impl == "ep_shardmap"
-    return False
+    shard as it is (in a decode step where `decode`)."""
+    return bool(_TP_LEAVES.search(path) or
+                decode and _TP_DECODE_LEAVES.search(path))
 
 
-def materialize(tree, specs, keep_model: Callable[[str, Tuple[int, ...]],
-                                                  bool]):
+def materialize(tree, specs, decode: bool = False):
     """Each leaf of `tree` (this rank's shards, laid out by the
     same-structured `specs`) as the per-device program reads it: gathered
     along each dimension the data axes cut (auto-FSDP; the gradient
     reduce-scattered back, partial sums added), and along a dimension cut
-    over "model" unless `keep_model(path, full shape)` says a layer runs on
-    the shard (the gradient of a layer run alike on every rank sliced
-    back).  Outside a per-device program the tree is whole already."""
+    over "model" unless a layer runs on the shard (`tensor_parallel_leaf`,
+    of a decode step where `decode`; the gradient of a layer run alike on
+    every rank sliced back).  Outside a per-device program the tree is
+    whole already."""
     from .sharding import _at, _path_str, tree_map_with_path
     local = current()
     if local is None:
@@ -472,13 +472,10 @@ def materialize(tree, specs, keep_model: Callable[[str, Tuple[int, ...]],
 
     def leaf(path, t):
         spec = _at(specs, path)
-        full = list(t.shape)
-        for d, axes in sharded_dims(spec, local.mesh.axis_names).items():
-            full[d] *= local.size(axes)
         for d, axes in sharded_dims(spec, dp).items():
             t = all_gather(t, axes, d, bwd="sum")
-        for d, axes in sharded_dims(spec, ("model",)).items():
-            if not keep_model(_path_str(path), tuple(full)):
+        if not tensor_parallel_leaf(_path_str(path), decode):
+            for d, axes in sharded_dims(spec, ("model",)).items():
                 t = all_gather(t, axes, d, bwd="slice")
         return t
     return tree_map_with_path(leaf, tree)

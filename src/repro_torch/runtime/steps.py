@@ -69,7 +69,6 @@ from ..configs.base import ArchConfig
 from ..core.torch_frontend import loop
 from ..models import decode_step as model_decode_step
 from ..models import forward, init_params, loss_fn
-from ..models.flags import get_flags
 from ..optim import (
     AdamWConfig,
     GradAccumulator,
@@ -139,8 +138,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     def loss_and_grads(params, batch):
         leaves, spec = tree_flatten(params)
         tracked = [p.detach().requires_grad_() for p in leaves]
-        whole = spmd.materialize(spec.unflatten(tracked), pspecs,
-                                 _keep(cfg, get_flags().moe_impl))
+        whole = spmd.materialize(spec.unflatten(tracked), pspecs)
         loss = loss_fn(whole, cfg, batch, chunk=options.chunk,
                        remat=options.remat)
         # a leaf the loss does not read (the embedding table of a config
@@ -235,11 +233,6 @@ def train_specs(rules, state) -> Dict[str, Any]:
     return specs
 
 
-def _keep(cfg: ArchConfig, moe_impl: str) -> Callable:
-    return lambda path, shape: spmd.tensor_parallel_leaf(path, shape, cfg,
-                                                         moe_impl)
-
-
 def _flat_specs(specs, tree):
     """Each leaf's spec in `tree`'s order; none cut where `specs` is
     None."""
@@ -316,9 +309,7 @@ def make_serve_step(cfg: ArchConfig, chunk: int = 512,
             raise ValueError(
                 f"serve_step(per_slot_pos={per_slot_pos}): pos has shape "
                 f"{shape}, expected {want}")
-        # decode reads the expert banks whole: its MoE forms route each
-        # slot, or the batch, with every expert (`decode_step`)
-        whole = spmd.materialize(params, pspecs, _keep(cfg, "global"))
+        whole = spmd.materialize(params, pspecs, decode=True)
         run_state, gathered = state, []
         if local is not None:
             kv_axes = {}
@@ -376,8 +367,7 @@ def make_prefill_step(cfg: ArchConfig, chunk: int = 512, device="cuda",
     `device`.  On a mesh, each rank's program on its shards of the params
     (laid out by `pspecs`) for its batch rows, over the whole vocab."""
     def prefill_step(params, batch):
-        whole = spmd.materialize(params, pspecs,
-                                 _keep(cfg, get_flags().moe_impl))
+        whole = spmd.materialize(params, pspecs)
         tokens, embeds = batch.get("tokens"), batch.get("embeds")
         logits, _ = forward(
             whole, cfg,

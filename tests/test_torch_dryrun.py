@@ -294,7 +294,9 @@ def test_lower_cell_is_a_capture_of_the_step(arch, model_flags, kind):
     assert sum(i.bytes_read + i.bytes_written for i in got) == \
         sum(i.bytes_read + i.bytes_written for i in want)
     assert module.kernel_calls == direct.kernel_calls
-    assert memory["argument_size_in_bytes"] == _nbytes(args)
+    # the arguments the program reads: a prefill's are all but the labels
+    assert memory["argument_size_in_bytes"] == _nbytes(dryrun.program_inputs(
+        shape, inputs, dryrun.unread_leaves(shape, direct)))
     assert memory["output_size_in_bytes"] == _nbytes(out)
     assert memory["temp_size_in_bytes"] is None
     assert memory["generated_code_size_in_bytes"] is None
@@ -308,9 +310,10 @@ def test_wrong_dtype_leaf_fails_the_byte_equality():
     mesh = make_host_mesh(1, device="cpu")
     from repro_torch.launch import specs
     inputs = specs.input_specs(cfg, shape)
-    real = _nbytes(dryrun.program_inputs(shape, _real_inputs(cfg, shape)))
+    module, memory, _ = dryrun.lower_cell(cfg, shape, mesh, inputs=inputs)
+    real = _nbytes(dryrun.program_inputs(shape, _real_inputs(cfg, shape),
+                                         dryrun.unread_leaves(shape, module)))
     assert real < _nbytes(_real_inputs(cfg, shape))  # no labels taken
-    _, memory, _ = dryrun.lower_cell(cfg, shape, mesh, inputs=inputs)
     assert memory["argument_size_in_bytes"] == real
     ln = inputs["params"]["groups"][0]["ln1"]
     inputs["params"]["groups"][0]["ln1"] = torch.empty(

@@ -3,18 +3,23 @@
 process group), against the reference's compiled SPMD program of the same
 cell.
 
-* qwen2-0.5b smoke, train / prefill / decode, on a `(2, 2)` ("data",
+* qwen2-0.5b, xlstm-125m, and phi3.5-moe and deepseek-v2 under both MoE
+  forms, smoke, train / prefill / decode, on a `(2, 2)` ("data",
   "model") mesh: the port's capture on a fake group of 4 ranks, and the
   reference's `launch/dryrun.py::lower_cell` compiled on 4 XLA host
   devices in a subprocess (it sets `XLA_FLAGS` before it imports JAX; the
   reference's module sets them to 512 devices when imported).  Per-device
   FLOPs (`Module.total_flops()` against `repro.core.parse_hlo` of the
   compiled text) within 10%: the two partitioners cut the same products
-  (attention by heads, the MLP by columns and rows, the vocab of the
+  (attention by heads, MLA's too, the MLP and the shared experts by
+  columns and rows, the expert banks by expert, the vocab of the
   embedding and the head), and differ in the elementwise work around them
   (the port's vocab-parallel cross-entropy, the reference's resharding
-  copies).  Per-device argument bytes exactly equal.  The collective kinds
+  copies).  Per-device argument bytes exactly equal: the arguments the
+  program reads (xlstm's decode reads no position).  The collective kinds
   of each are printed; `PERF.md` explains each difference.
+* `spmd.materialize` on (2, 2): the leaves it gathers over "model", by
+  path; none of the MoE configs' (banks, shared experts, MLA).
 * qwen2-0.5b `train_4k` at full width, its depth cut to one layer, on the
   16x16 production mesh: an `ok` record with collective bytes above 0 and
   the argument bytes of the reference's specs; a short prefill's record,
@@ -43,11 +48,20 @@ from repro_torch.configs import ShapeConfig, get_config, smoke_config
 from repro_torch.core import capture
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_mesh
+from repro_torch.models.flags import flags
 from repro_torch.parallel import spmd
 
 ROOT = Path(__file__).resolve().parent.parent
 KINDS = ("train", "prefill", "decode")
 SEQ, BATCH = 64, 8
+
+# (arch, moe_impl) of the comparison's cases: qwen2-0.5b's keep their ids
+# (the kind alone)
+CASES = [("qwen2-0.5b", "global"), ("xlstm-125m", "global")] + [
+    (arch, impl) for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
+    for impl in ("global", "ep_shardmap")]
+SHORT = {"phi3.5-moe-42b-a6.6b": "phi3.5-moe",
+         "deepseek-v2-236b": "deepseek-v2"}
 
 REF_SCRIPT = r"""
 import json, os, sys
@@ -59,23 +73,27 @@ from jax.sharding import AxisType
 import repro.launch.dryrun as rd
 from repro.configs import ShapeConfig, get_config, smoke_config
 from repro.core import parse_hlo
-cfg = smoke_config(get_config("qwen2-0.5b"))
+from repro.models.flags import flags
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
 out = {}
-for kind in ("train", "prefill", "decode"):
-    shape = ShapeConfig("smoke_" + kind, %d, %d, kind)
-    _, compiled, _ = rd.lower_cell(cfg, shape, mesh)
-    module = parse_hlo(compiled.as_text(), hints={"total_devices": 4})
-    kinds = sorted({i.opcode.replace("-start", "").replace("-done", "")
-                    for i in module.all_instructions()} &
-                   {"all-reduce", "all-gather", "reduce-scatter",
-                    "all-to-all", "collective-permute"})
-    out[kind] = {"flops": module.total_flops(),
-                 "args": compiled.memory_analysis().argument_size_in_bytes,
-                 "collectives": kinds}
+for arch, impl in %r:
+    cfg = smoke_config(get_config(arch))
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeConfig("smoke_" + kind, %d, %d, kind)
+        with flags(moe_impl=impl):
+            _, compiled, _ = rd.lower_cell(cfg, shape, mesh)
+        module = parse_hlo(compiled.as_text(), hints={"total_devices": 4})
+        kinds = sorted({i.opcode.replace("-start", "").replace("-done", "")
+                        for i in module.all_instructions()} &
+                       {"all-reduce", "all-gather", "reduce-scatter",
+                        "all-to-all", "collective-permute"})
+        out["|".join((arch, impl, kind))] = {
+            "flops": module.total_flops(),
+            "args": compiled.memory_analysis().argument_size_in_bytes,
+            "collectives": kinds}
 print(json.dumps(out))
-""" % (SEQ, BATCH)
+""" % (CASES, SEQ, BATCH)
 
 
 @pytest.fixture(scope="module")
@@ -83,15 +101,16 @@ def reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     done = subprocess.run([sys.executable, "-c", REF_SCRIPT], env=env,
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=900)
     assert done.returncode == 0, done.stderr[-3000:]
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
-def _port(kind):
-    cfg = smoke_config(get_config("qwen2-0.5b"))
+def _port(kind, arch="qwen2-0.5b", impl="global"):
+    cfg = smoke_config(get_config(arch))
     shape = ShapeConfig("smoke_" + kind, SEQ, BATCH, kind)
-    with fake_mesh(("data", "model"), (2, 2), "cpu") as mesh:
+    with flags(moe_impl=impl), \
+            fake_mesh(("data", "model"), (2, 2), "cpu") as mesh:
         module, memory, _ = dryrun.lower_cell(cfg, shape, mesh)
     return module, memory
 
@@ -101,17 +120,106 @@ def _collective_kinds(module):
                    if i.op_class.value == "collective"})
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_per_device_program_matches_the_reference_compile(reference, kind):
-    module, memory = _port(kind)
-    ref = reference[kind]
+def _case_id(arch, impl, kind):
+    if arch == "qwen2-0.5b":
+        return kind
+    return "-".join([SHORT.get(arch, arch)] +
+                    ([impl] if arch in SHORT else []) + [kind])
+
+
+@pytest.mark.parametrize("arch,impl,kind", [
+    pytest.param(arch, impl, kind, id=_case_id(arch, impl, kind))
+    for arch, impl in CASES for kind in KINDS])
+def test_per_device_program_matches_the_reference_compile(reference, arch,
+                                                          impl, kind):
+    module, memory = _port(kind, arch, impl)
+    ref = reference["|".join((arch, impl, kind))]
     flops = module.total_flops()
-    print(f"{kind}: port {flops:.0f} FLOPs, collectives "
+    print(f"{arch} {impl} {kind}: port {flops:.0f} FLOPs, collectives "
           f"{_collective_kinds(module)}; reference {ref['flops']:.0f}, "
           f"{ref['collectives']}")
     assert abs(flops - ref["flops"]) <= 0.10 * ref["flops"]
     assert memory["argument_size_in_bytes"] == ref["args"]
     assert _collective_kinds(module)  # the program communicates
+
+
+def _model_gathered(arch, impl, decode):
+    """The paths of the leaves whose "model" cut `spmd.materialize`
+    gathers, in rank 0's per-device program on a fake (2, 2) mesh (smoke
+    config, the rules' specs), and the paths the rules cut over "model"."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import (ShardingRules, _at,
+                                               _path_str, shard_shape,
+                                               tree_leaves_with_path,
+                                               tree_map_with_path)
+    cfg = smoke_config(get_config(arch))
+    params = init_params(cfg, device="meta")
+    with flags(moe_impl=impl), \
+            fake_mesh(("data", "model"), (2, 2), "cpu") as mesh:
+        specs = ShardingRules(mesh, cfg).param_specs(params)
+        shards = tree_map_with_path(lambda path, t: torch.zeros(
+            shard_shape(_at(specs, path), tuple(t.shape), mesh),
+            dtype=t.dtype), params)
+        with spmd.program(mesh):
+            whole = spmd.materialize(shards, specs, decode=decode)
+    cut, gathered = [], []
+    for path, t in tree_leaves_with_path(whole):
+        dims = spmd.sharded_dims(_at(specs, path), ("model",))
+        if dims:
+            cut.append(_path_str(path))
+            full = _at(params, path).shape
+            if any(t.shape[d] == full[d] for d in dims):
+                gathered.append(_path_str(path))
+    return cut, gathered
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
+@pytest.mark.parametrize("impl", ["global", "ep_shardmap"])
+@pytest.mark.parametrize("decode", [False, True], ids=["step", "decode"])
+def test_materialize_gathers_no_split_layer(arch, impl, decode):
+    """On (2, 2) the MoE configs' expert banks, shared experts and MLA
+    weights are read on this rank's shard: `materialize` gathers none of
+    the leaves the rules cut over "model"."""
+    cut, gathered = _model_gathered(arch, impl, decode)
+    want = {"w_up", "w_down"} | ({"wq_a", "wq_b", "wkv_b", "wo"}
+                                 if "deepseek" in arch else {"wq", "wo"})
+    assert want <= {p.split("/")[-1] for p in cut}, cut
+    if "deepseek" in arch:
+        assert any("/shared/" in p for p in cut), cut
+    assert gathered == [], gathered
+
+
+def test_materialize_gathers_the_ssm_outside_decode():
+    """hymba's SSM has a tensor-parallel form in decode only: a train or
+    prefill step gathers its cut leaves, a decode step reads them on this
+    rank's channels."""
+    _, gathered = _model_gathered("hymba-1.5b", "global", False)
+    assert gathered and all("/ssm/" in p for p in gathered), gathered
+    assert _model_gathered("hymba-1.5b", "global", True)[1] == []
+
+
+def test_unread_arguments_are_left_out():
+    """xlstm-125m's decode reads no position (its mixers are recurrent):
+    the captured program's unread argument is the 4-byte `pos`, and the
+    argument bytes leave it out, as the reference's compiled step does
+    (342096 bytes a device on (2, 2)); a prefill leaves out its labels."""
+    cfg = smoke_config(get_config("xlstm-125m"))
+    module, memory = _port("decode", "xlstm-125m")
+    assert module.unread_parameters == ["3"]
+    assert dryrun.unread_leaves(ShapeConfig("d", SEQ, BATCH, "decode"),
+                                module) == {("batch", "pos")}
+    shape = ShapeConfig("smoke_decode", SEQ, BATCH, "decode")
+    from repro_torch.launch import specs as S
+    with fake_mesh(("data", "model"), (2, 2), "cpu") as mesh:
+        every = dryrun.argument_bytes(cfg, shape, mesh,
+                                      S.input_specs(cfg, shape))
+    assert sum(every.values()) - memory["argument_size_in_bytes"] == 4
+    assert memory["argument_size_in_bytes"] == 342096
+    prefill, _ = _port("prefill", "xlstm-125m")
+    assert prefill.unread_parameters == ["1.labels"]
+    qwen, _ = _port("decode")
+    assert qwen.unread_parameters == []  # attention reads the position
 
 
 class _Mesh:

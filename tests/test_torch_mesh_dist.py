@@ -20,13 +20,20 @@ four ranks: four spawned `gloo` processes on the CPU, joined by a
   one-device step over two micro-batches, one a data shard, and the
   reference's jitted step with `microbatch=2`; on `(1, 4)` the one-device
   step over the whole batch.  Two runs give the same bits.
-* On `(2, 2)` under `sequence_parallel`, the mixers with no
-  tensor-parallel form, run alike on every rank of "model" on the whole
-  sequence (`models/transformer.py::_replicated`): hymba-1.5b smoke
-  (hybrid attention and SSM) and deepseek-v2 smoke (MLA, and a MoE with
-  shared experts routed over the whole batch, its tokens gathered over
-  "data"), each against the one-device step on the same state and batch,
-  two runs the same bits; and one hymba decode step of a single slot,
+* On `(2, 2)` under `sequence_parallel`: hymba-1.5b smoke (hybrid
+  attention and SSM; the SSM has no tensor-parallel form and runs alike
+  on every rank of "model" on the whole sequence,
+  `models/transformer.py::_replicated`) and deepseek-v2 smoke (MLA on a
+  rank's heads, and a MoE under the default `global` form routed over the
+  whole batch, its tokens gathered over "data", each rank running its own
+  experts and its columns of the shared experts), each against the
+  one-device step on the same state and batch, two runs the same bits.
+  phi3.5-moe smoke under `global` on `(2, 2)`: a train step (each rank's
+  experts, the backward of their products split over "data" by capacity
+  rows) and a serve step in each decode form (per-slot positions, each
+  slot routed alone, and a shared position, the batch routed together),
+  against the one-device steps, two runs the same bits; and one hymba
+  decode step of a single slot,
   its sliding-window caches' positions and its SSM state cut over "data"
   (the caches read by the distributed softmax, the SSM state gathered for
   the step and cut back after it), against the one-device serve step.
@@ -292,6 +299,65 @@ def _rank_hybrid_serve():
             _to_numpy(gather(new)), cut)
 
 
+def _moe_serve_inputs():
+    """phi3.5-moe smoke f32 weights and a 4-slot decode state of 64
+    positions whose first 6 hold random keys and values."""
+    from repro_torch.models import init_decode_state, init_params
+    cfg = _cfg(M_ARCH)
+    gen = torch.Generator().manual_seed(7)
+    params = init_params(cfg, gen, "cpu")
+    state = init_decode_state(cfg, 4, 64, device="cpu")
+    for group in state["groups"]:
+        for buf in group["kv"].values():
+            buf[:, :, :6] = torch.randn(buf[:, :, :6].shape, generator=gen)
+    return cfg, params, state
+
+
+MOE_TOKENS, MOE_POS = [7, 11, 200, 3], {"slots": [6, 4, 5, 6], "shared": 6}
+
+
+def _rank_moe_serve():
+    """phi3.5-moe's serve step under `global` on the (2, 2) mesh, the 4
+    slots cut over "data", in each decode form, each run twice from the
+    same state: the tokens, the logits and the new state, whole."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import (
+        PartitionSpec,
+        ShardingRules,
+        gather,
+        place,
+    )
+    from repro_torch.runtime.steps import make_serve_step, shard_step
+    cfg, params, _ = _moe_serve_inputs()
+    mesh = make_host_mesh(2, device="cpu")
+    rules = ShardingRules(mesh, cfg)
+    pspecs = rules.param_specs(params)
+    shape = ShapeConfig("d", 64, 4, "decode")
+    out = {}
+    for form, pos in MOE_POS.items():
+        sspecs = rules.decode_state_specs(_moe_serve_inputs()[2], shape)
+        serve = shard_step(make_serve_step(
+            cfg, per_slot_pos=form == "slots", pspecs=pspecs,
+            sspecs=sspecs), mesh, (PartitionSpec(rules.dp_spec),
+                                   rules.logits_spec(shape), sspecs))
+        runs = []
+        for _ in range(2):
+            token, logits, new = serve(
+                place(params, pspecs, mesh),
+                place(_moe_serve_inputs()[2], sspecs, mesh),
+                place(torch.tensor(MOE_TOKENS),
+                      PartitionSpec(rules.dp_spec), mesh),
+                place(torch.tensor(pos), PartitionSpec(
+                    rules.dp_spec) if form == "slots" else PartitionSpec(),
+                    mesh))
+            runs.append((token.full_tensor().numpy(),
+                         logits.full_tensor().numpy(),
+                         _to_numpy(gather(new))))
+        out[form] = runs
+    return out
+
+
 def _leaves_of(tree):
     from torch.utils._pytree import tree_leaves
     return tree_leaves(tree)
@@ -328,6 +394,7 @@ def _rank(rank, path, jobs, compressed, ckpt, out):
         steps = {mesh: (_rank_steps(mp_size, cases), _rank_serve(mp_size))
                  for mesh, (mp_size, cases) in jobs.items()}
         steps["hybrid_serve"] = _rank_hybrid_serve()
+        steps["moe_serve"] = _rank_moe_serve()
         steps["compressed"] = _rank_compressed(*compressed)
         driver = _rank_driver(ckpt)
         out.put((rank, steps if rank == 0 else None, driver))
@@ -453,6 +520,7 @@ def ranks(tmp_path_factory):
     jobs["2x2"][1].extend(
         (arch, R_FLAGS, 1, refs[arch][2], batches[arch])
         for arch in (H_ARCH, D_ARCH))
+    jobs["2x2"][1].append((M_ARCH, {}, 1, refs[M_ARCH][2], batches[M_ARCH]))
     got = _spawn(jobs, (refs[Q_ARCH][2], batches[Q_ARCH]),
                  str(tmp / "ckpt"), tmp)
     return {"steps": got[0][1], "driver": [r[2] for r in got],
@@ -490,9 +558,10 @@ def test_train_steps_on_four_ranks(mesh, ranks):
 
 @pytest.mark.parametrize("arch", [H_ARCH, D_ARCH])
 def test_replicated_mixers_on_four_ranks(arch, ranks):
-    """hymba (attention and SSM) and deepseek-v2 (MLA, shared experts) on
-    (2, 2) under `sequence_parallel`, against the one-device step; two
-    runs the same bits."""
+    """hymba (attention, and the SSM run alike on every rank of "model")
+    and deepseek-v2 (MLA on a rank's heads, the MoE's experts and shared
+    columns on a rank's) on (2, 2) under `sequence_parallel`, against the
+    one-device step; two runs the same bits."""
     runs = ranks["steps"]["2x2"][0][2 + [H_ARCH, D_ARCH].index(arch)]
     _hold(runs[0], _one_device(arch, R_FLAGS, 1, ranks["refs"][arch][2],
                                ranks["batches"][arch]))
@@ -500,6 +569,44 @@ def test_replicated_mixers_on_four_ranks(arch, ranks):
     second = dict(_leaves(runs[1][0]))
     for path, leaf in _leaves(runs[0][0]):
         assert np.array_equal(leaf, second[path]), path
+
+
+def test_moe_global_form_on_four_ranks(ranks):
+    """phi3.5-moe under `global` on (2, 2): the train step (each rank's
+    experts, the backward of their products split over "data") against
+    the one-device step at `_hold`'s tolerances, and a serve step in each
+    decode form against the one-device serve step: the greedy tokens
+    equal, the logits within 1e-5 of their largest, the new state within
+    1e-6 of each leaf's largest (the qwen2 decode's tolerances below);
+    two runs the same bits."""
+    from repro_torch.runtime import make_serve_step
+    runs = ranks["steps"]["2x2"][0][4]
+    _hold(runs[0], _one_device(M_ARCH, {}, 1, ranks["refs"][M_ARCH][2],
+                               ranks["batches"][M_ARCH]))
+    assert runs[0][1] == runs[1][1]
+    second = dict(_leaves(runs[1][0]))
+    for path, leaf in _leaves(runs[0][0]):
+        assert np.array_equal(leaf, second[path]), path
+    for form, pos in MOE_POS.items():
+        cfg, params, want_state = _moe_serve_inputs()
+        want_token, want_logits, want_state = make_serve_step(
+            cfg, per_slot_pos=form == "slots")(
+            params, want_state, torch.tensor(MOE_TOKENS), torch.tensor(pos))
+        want_logits = want_logits.numpy()
+        want_leaves = dict(_leaves(_to_numpy(want_state)))
+        (token, logits, state), again = ranks["steps"]["moe_serve"][form]
+        assert np.array_equal(token, want_token.numpy()), form
+        np.testing.assert_allclose(logits, want_logits, rtol=0,
+                                   atol=1e-5 * np.abs(want_logits).max())
+        for path, leaf in _leaves(state):
+            np.testing.assert_allclose(leaf, want_leaves[path], rtol=0,
+                                       atol=1e-6 * np.abs(leaf).max(),
+                                       err_msg=path)
+        assert np.array_equal(token, again[0])
+        assert np.array_equal(logits, again[1])
+        for (path, leaf), (_, leaf2) in zip(_leaves(state),
+                                            _leaves(again[2])):
+            assert np.array_equal(leaf, leaf2), path
 
 
 def test_hybrid_decode_state_is_cut_back(ranks):

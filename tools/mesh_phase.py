@@ -5,6 +5,7 @@ mesh (`runtime/steps.py`) on the card, after the kernel build.
   python3 tools/mesh_phase.py          # (a) and (b) on one card, and (c)
                                        # where four cards exist
   python3 tools/mesh_phase.py four     # (c) alone: four NCCL ranks
+  python3 tools/mesh_phase.py four deepseek-v2-236b   # (c) of one config
 
 (a) phase 22's MoE train step and qwen2-0.5b's prefill on an NCCL group of
 one rank against one card, bit for bit; (b) a production cell's program
@@ -49,7 +50,8 @@ def main(argv) -> int:
     print(f"build {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     if argv[:1] == ["four"]:
-        result = cs.mesh_four_ranks(torch)
+        result = cs.mesh_four_ranks(torch, tuple(argv[1:]) or
+                                    cs.MESH_RANKS_ARCHS)
     else:
         result = cs.run_mesh(torch, ops, flags, get_config, init_params,
                              make_prefill_step, runtime, data)
